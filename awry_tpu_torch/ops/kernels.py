@@ -1,0 +1,265 @@
+"""The hand-written Hopper kernels, their plain PyTorch versions, the nvcc
+build and the ctypes binding.
+
+Two kernels carry the seed-walk-verify path (sources under ``csrc/``, each
+with a note on the TPU kernel it replaces, its bound and its design):
+
+* ``window_read(flat, wbase, k)`` - ``words[i, j] = flat[clamp(wbase[i],
+  k-1, len-1) - j]``: the k-mer seed pair, the mark=1 SA read and the
+  verify text window.
+* ``occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes)`` - both endpoint
+  ranks of an LF range update from the fused block rows.
+
+Tables are int32 tensors holding uint32 bit patterns; positions are int64;
+outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``).
+
+A wrapper takes its plain version only when its inputs are CPU tensors; on
+CUDA tensors it launches the kernel or raises.  Each wrapper counts its
+launches in a ``launches`` attribute.  The kernels build on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per source, all
+started together, then one link) into ``awry_tpu_torch/_build/``; the
+library is named by a hash of the sources and flags, so an edited source
+rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCES = ("window_read.cu", "occ_pair.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_lib_handle = None
+
+_FULL = 0xFFFFFFFF
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> str:
+    """Path of the kernel library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libawry_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if the library for these sources is missing, and
+    return its path.  The compiler's per-kernel register and shared-memory
+    report (``-Xptxas=-v``) is kept beside the library as ``<lib>.log``."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{name}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name), "-o", obj]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        objs.append(obj)
+    log = []
+    failed = []
+    for name, proc in procs:
+        out = proc.communicate()[0].decode(errors="replace")
+        log.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    tmp = f"{path}.tmp.{tag}"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    with open(path + ".log", "w") as f:
+        f.write("\n".join(log))
+    os.replace(tmp, path)
+    for obj in objs:
+        os.remove(obj)
+    return path
+
+
+def _lib():
+    global _lib_handle
+    with _lock:
+        if _lib_handle is None:
+            lib = ctypes.CDLL(build())
+            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            lib.awry_window_read.restype = i32
+            lib.awry_window_read.argtypes = [i32, p, i64, p, i64, i32, p, p]
+            lib.awry_occ_pair.restype = i32
+            lib.awry_occ_pair.argtypes = [i32, p, i64, i32, i32, i32, p, p, p, p, i64, p, p, p]
+            _lib_handle = lib
+        return _lib_handle
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU; False when every one lies on
+    a CUDA device; raises on anything else (mixed or other devices)."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"kernel inputs must lie on one CUDA device or all on the CPU, got {[str(t.device) for t in tensors]}")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {ndim}-d {dtype} tensor, got "
+            f"{t.dtype} shape {tuple(t.shape)} contiguous={t.is_contiguous()}"
+        )
+
+
+def _launch_check(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor with the same low 32 bits."""
+    x = x & _FULL
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of int64 values in [0, 2**32) (torch has no popcount)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _FULL) >> 24
+
+
+# -- window_read ---------------------------------------------------------------
+
+
+def window_read_plain(flat: torch.Tensor, wbase: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of window_read (advanced indexing)."""
+    wb = wbase.clamp(k - 1, flat.shape[0] - 1)
+    return flat[wb[:, None] - torch.arange(k, device=flat.device)]
+
+
+def window_read(flat: torch.Tensor, wbase: torch.Tensor, k: int) -> torch.Tensor:
+    """int32[R, k]: ``flat[clamp(wbase[i], k-1, len-1) - j]`` for j < k.
+    flat: int32[N] (uint32 bit patterns), wbase: int64[R]."""
+    if _on_cpu(flat, wbase):
+        return window_read_plain(flat, wbase, k)
+    _check("flat", flat, torch.int32, 1)
+    _check("wbase", wbase, torch.int64, 1)
+    if not 1 <= k <= flat.shape[0]:
+        raise ValueError(f"window_read: k={k} outside [1, {flat.shape[0]}]")
+    r = wbase.shape[0]
+    out = torch.empty((r, k), dtype=torch.int32, device=flat.device)
+    if r:
+        rc = _lib().awry_window_read(
+            flat.device.index, flat.data_ptr(), flat.shape[0], wbase.data_ptr(), r, k,
+            out.data_ptr(), _stream(flat.device),
+        )
+        _launch_check(rc, "window_read")
+        window_read.launches += 1
+    return out
+
+
+window_read.launches = 0
+
+
+# -- occ_pair ------------------------------------------------------------------
+
+
+def _occ_plain(blocks, pos, sym, codes, nplanes: int) -> torch.Tensor:
+    """Occ(pos, sym) as int64 from the fused rows (the arithmetic of one
+    occ_pair endpoint): gather + XOR-polarity AND + masked SWAR popcount +
+    milestone."""
+    p = pos.clamp(0, blocks.shape[0] * 256 - 1)
+    rows = blocks[p >> 8].to(torch.int64) & _FULL  # [R, row_words]
+    code = codes[sym].to(torch.int64)
+    occv = torch.full((p.shape[0], 8), _FULL, dtype=torch.int64, device=p.device)
+    for v in range(nplanes):
+        pol = (((code >> v) & 1) - 1) & _FULL  # bit set -> 0, clear -> all ones
+        occv &= rows[:, v * 8 : (v + 1) * 8] ^ pol[:, None]
+    local = p & 255
+    word = (local >> 5)[:, None]
+    lane = torch.arange(8, device=p.device)[None, :]
+    in_word = (_FULL >> (31 - (local & 31)))[:, None]
+    mask = torch.where(lane < word, _FULL, torch.where(lane == word, in_word, 0))
+    pop = popcount32(occv & mask).sum(dim=1)
+    milestone = rows.gather(1, (nplanes * 8 + sym.to(torch.int64))[:, None])[:, 0]
+    return milestone + pop
+
+
+def occ_pair_plain(blocks, pos_a, pos_b, sym, codes, nplanes: int):
+    """Plain version of occ_pair (gather + SWAR popcount)."""
+    s = sym.clamp(0, codes.shape[0] - 1)
+    return (
+        as_int32_bits(_occ_plain(blocks, pos_a, s, codes, nplanes)),
+        as_int32_bits(_occ_plain(blocks, pos_b, s, codes, nplanes)),
+    )
+
+
+def occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes: int):
+    """(int32[R], int32[R]): Occ(pos_a, sym) and Occ(pos_b, sym).
+
+    blocks: int32[num_blocks, row_words] fused rows; pos_a, pos_b: int64[R]
+    (clamped into the table); sym: int32[R] symbol indices (clamped to the
+    alphabet); codes: int32[cardinality] symbol -> occurrence code; nplanes:
+    3 (nucleotide) or 5 (amino)."""
+    if _on_cpu(blocks, pos_a, pos_b, sym, codes):
+        return occ_pair_plain(blocks, pos_a, pos_b, sym, codes, nplanes)
+    _check("blocks", blocks, torch.int32, 2)
+    for name, t, dt in (("pos_a", pos_a, torch.int64), ("pos_b", pos_b, torch.int64),
+                        ("sym", sym, torch.int32), ("codes", codes, torch.int32)):
+        _check(name, t, dt, 1)
+    r = pos_a.shape[0]
+    if pos_b.shape[0] != r or sym.shape[0] != r:
+        raise ValueError("occ_pair: pos_a, pos_b and sym must have one length")
+    row_words = blocks.shape[1]
+    card = codes.shape[0]
+    if nplanes not in (3, 5) or row_words % 4 or row_words < nplanes * 8 + card:
+        raise ValueError(f"occ_pair: bad row layout (row_words={row_words}, nplanes={nplanes}, card={card})")
+    if blocks.data_ptr() % 16:
+        raise ValueError("occ_pair: blocks must be 16-byte aligned (uint4 loads)")
+    occ_a = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    occ_b = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    if r:
+        rc = _lib().awry_occ_pair(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], row_words, nplanes, card,
+            codes.data_ptr(), pos_a.data_ptr(), pos_b.data_ptr(), sym.data_ptr(), r,
+            occ_a.data_ptr(), occ_b.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "occ_pair")
+        occ_pair.launches += 1
+    return occ_a, occ_b
+
+
+occ_pair.launches = 0

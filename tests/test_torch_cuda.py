@@ -1,0 +1,60 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs a CUDA device and imports nothing of the JAX package, so it runs on a
+machine without JAX:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q -m cuda
+
+On the CPU every test here skips."""
+
+import numpy as np
+import pytest
+import torch
+
+from awry_tpu_torch import Alphabet, FmBuildArgs, build_from_records
+from awry_tpu_torch.ops import kernels, to_device
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    return torch.device("cuda", 0)
+
+
+def _device_index(alphabet, n, seed):
+    rng = np.random.default_rng(seed)
+    letters = b"ACGT" if alphabet is Alphabet.NUCLEOTIDE else b"ACDEFGHIKLMNPQRSTVWY"
+    seq = bytes(rng.choice(np.frombuffer(letters, dtype=np.uint8), size=n))
+    args = FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4, locate_mark_ratio=1)
+    return to_device(build_from_records([("x", seq)], args), "cpu"), rng
+
+
+@pytest.mark.cuda
+def test_window_read_matches_plain(card):
+    tdev, rng = _device_index(Alphabet.NUCLEOTIDE, 60_000, 1)
+    for flat in (tdev.text_sampled_sa.to(card), tdev.text_packed.to(card), tdev.kmer_flat.to(card)):
+        wbase = torch.from_numpy(rng.integers(-5, flat.shape[0] + 5, size=4099)).to(card)
+        for k in (1, 2, 3, 5):
+            n0 = kernels.window_read.launches
+            got = kernels.window_read(flat, wbase, k)
+            assert kernels.window_read.launches == n0 + 1
+            assert torch.equal(got, kernels.window_read_plain(flat, wbase, k))
+    empty = kernels.window_read(flat, wbase[:0], 2)
+    assert empty.shape == (0, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+def test_occ_pair_matches_plain(card, alphabet):
+    tdev, rng = _device_index(alphabet, 60_000, 2)
+    blocks, codes = tdev.blocks.to(card), tdev.codes.to(card)
+    n = tdev.bwt_len
+    pos_a = torch.from_numpy(rng.integers(-1, n, size=4099)).to(card)
+    pos_b = (pos_a + torch.from_numpy(rng.integers(0, 300, size=4099)).to(card)).clamp_max(n - 1)
+    sym = torch.from_numpy(rng.integers(0, alphabet.cardinality, size=4099).astype(np.int32)).to(card)
+    n0 = kernels.occ_pair.launches
+    got = kernels.occ_pair(blocks, pos_a, pos_b, sym, codes, tdev.num_planes)
+    assert kernels.occ_pair.launches == n0 + 1
+    want = kernels.occ_pair_plain(blocks, pos_a, pos_b, sym, codes, tdev.num_planes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
