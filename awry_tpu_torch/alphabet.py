@@ -153,6 +153,17 @@ def index_to_code_table(alphabet: Alphabet) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def code_to_index_table(alphabet: Alphabet) -> np.ndarray:
+    """uint8[2**num_planes] LUT: bit-vector code -> symbol index; codes no
+    symbol has map to the ambiguity index (src/alphabet.rs:199-222)."""
+    table = np.full(1 << alphabet.num_planes, alphabet.ambiguity_idx, dtype=np.uint8)
+    for idx, code in enumerate(_INDEX_TO_CODE[alphabet]):
+        table[code] = idx
+    table.setflags(write=False)
+    return table
+
+
+@lru_cache(maxsize=None)
 def normalize_table(alphabet: Alphabet) -> np.ndarray:
     """uint8[256] LUT: raw input byte -> canonical text byte.
 

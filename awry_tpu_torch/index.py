@@ -37,8 +37,8 @@ class FmBuildArgs:
     suffix_array_compression_ratio: int | None = None  # default 8
     lookup_table_kmer_len: int | None = None  # defaults 10 / 4
     # Text-order sampling density of the locate marks; None -> min(4,
-    # sa_ratio).  The port's locate serves mark ratio 1 only (every BWT row
-    # stores its SA value), so callers pass locate_mark_ratio=1.
+    # sa_ratio).  Ratio 1 stores every row's SA value (locate is one read);
+    # ratio r stores 1/r of them and locate walks at most r - 1 LF steps.
     locate_mark_ratio: int | None = None
 
     def resolved_sa_ratio(self) -> int:

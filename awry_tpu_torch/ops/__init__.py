@@ -1,14 +1,17 @@
 from .device_index import FmDeviceIndex, build_fused_blocks, from_numpy_index, fused_row_words, to_device
 from .engine import FmQueryEngine
-from .kernels import occ_pair, occ_pair_plain, window_read, window_read_plain
+from .kernels import backstep, backstep_plain, occ_pair, occ_pair_plain, window_read, window_read_plain
 from .locate import count_locate_capped_t, lf_walk
-from .rank import occurrence_plain, seed_range, update_range
+from .rank import backstep_mark, occurrence_plain, seed_range, symbol_at, update_range
 from .search import count_batch_kernel_t, counts_from_ranges, search_ranges_t
 from .verify import count_locate_verify_t, switch_step
 
 __all__ = [
     "FmDeviceIndex",
     "FmQueryEngine",
+    "backstep",
+    "backstep_mark",
+    "backstep_plain",
     "build_fused_blocks",
     "count_batch_kernel_t",
     "count_locate_capped_t",
@@ -23,6 +26,7 @@ __all__ = [
     "search_ranges_t",
     "seed_range",
     "switch_step",
+    "symbol_at",
     "to_device",
     "update_range",
     "window_read",

@@ -10,8 +10,11 @@
 * ``text_packed`` - the packed text with TEXT_PAD_WORDS zero words in
   front, so the verify compare's backward window read never clamps into
   real text;
-* ``text_sampled_sa`` - the SA value of every BWT row (mark ratio 1);
-* ``seq_starts`` - record starts, for localization.
+* ``text_sampled_sa`` - the SA values of the marked rows in row order
+  (ceil(bwt_len / mark_ratio) of them; every row at mark ratio 1);
+* ``seq_starts`` - record starts, for localization;
+* ``codes`` / ``c2i`` / ``dense`` - the symbol -> occurrence code, code ->
+  symbol and symbol -> dense k-mer digit tables.
 
 Tables are int32 tensors holding the uint32 bit patterns (numpy views, not
 value casts); prefix sums and record starts are int64.
@@ -24,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..alphabet import Alphabet, index_to_code_table, index_to_dense_table
+from ..alphabet import Alphabet, code_to_index_table, index_to_code_table, index_to_dense_table
 from ..index import FmIndexData
 
 TEXT_PAD_WORDS = 64  # zero words prepended to the device text (ops/verify.py)
@@ -74,13 +77,15 @@ class FmDeviceIndex:
     prefix_sums: torch.Tensor  # int64 [cardinality + 1]
     kmer_flat: torch.Tensor  # int32 [2 * base**kmer_len]
     text_packed: torch.Tensor  # int32 [TEXT_PAD_WORDS + text words]
-    text_sampled_sa: torch.Tensor  # int32 [bwt_len]
+    text_sampled_sa: torch.Tensor  # int32 [ceil(bwt_len / mark_ratio)]
     seq_starts: torch.Tensor  # int64 [num_records]
     codes: torch.Tensor  # int32 [cardinality]: symbol index -> occurrence code
+    c2i: torch.Tensor  # int32 [2**num_planes]: occurrence code -> symbol index
     dense: torch.Tensor  # int64 [cardinality]: symbol index -> dense k-mer digit or -1
     alphabet: Alphabet
     bwt_len: int
     kmer_len: int
+    mark_ratio: int  # the LF walk takes at most mark_ratio - 1 steps
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +94,11 @@ class FmDeviceIndex:
     @property
     def num_planes(self) -> int:
         return self.alphabet.num_planes
+
+    @property
+    def mark_offset(self) -> int:
+        """Word of the 8 mark words in a fused row (the mark milestone follows)."""
+        return self.num_planes * 8 + self.alphabet.cardinality
 
 
 def _u32_bits(arr: np.ndarray) -> np.ndarray:
@@ -103,10 +113,11 @@ def to_device(index: FmIndexData, device=None) -> FmDeviceIndex:
         raise NotImplementedError(
             "texts of 4 Gbp and more need the 64-bit engine, not ported yet (ROADMAP Queue 1 item 11)"
         )
-    if not index.has_marks or index.resolved_mark_ratio != 1 or index.text_packed is None:
+    if not index.has_marks or index.text_packed is None:
         raise NotImplementedError(
-            "locate with a mark ratio above 1 needs the marked LF walk, not "
-            "ported yet (ROADMAP Queue 1 item 8); build with locate_mark_ratio=1"
+            "indexes without locate marks or packed text (loaded from AWRY's own "
+            "files) need the row-sampled walk and the classic-only engine, not "
+            "ported yet (ROADMAP Queue 1 item 14)"
         )
 
     def put(arr: np.ndarray) -> torch.Tensor:
@@ -123,10 +134,12 @@ def to_device(index: FmIndexData, device=None) -> FmDeviceIndex:
         text_sampled_sa=put(_u32_bits(index.text_sampled_sa)),
         seq_starts=put(index.seq_starts.astype(np.int64)),
         codes=put(index_to_code_table(index.alphabet).astype(np.int32)),
+        c2i=put(code_to_index_table(index.alphabet).astype(np.int32)),
         dense=put(index_to_dense_table(index.alphabet).astype(np.int64)),
         alphabet=index.alphabet,
         bwt_len=int(index.bwt_len),
         kmer_len=int(index.kmer_len),
+        mark_ratio=int(index.resolved_mark_ratio),
     )
 
 

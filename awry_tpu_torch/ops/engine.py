@@ -21,7 +21,7 @@ from ..alphabet import encode_ascii
 from ..index import FmIndexData
 from .device_index import TEXT_PAD_WORDS, resolve_device, to_device
 from .locate import count_locate_capped_t, lf_walk
-from .search import count_batch_kernel_t, unpack_crumbs_t, unpack_nibbles_t
+from .search import count_batch_kernel_t, search_ranges_t, unpack_crumbs_t, unpack_nibbles_t
 from .verify import count_locate_verify_t, switch_step, unpack_verify_bundle, wide_groups
 
 # Rows per over-cap locate slab (bounds the device expansion's memory).
@@ -149,6 +149,40 @@ class FmQueryEngine:
         offsets)``: hits of query ``i`` are ``zip(seq_idx, local)[offsets[i]:
         offsets[i+1]]``, in BWT-row order."""
         return next(self.count_locate_stream([queries], cap=cap))
+
+    def count_locate_batch(self, queries, *, cap: int = 8):
+        """Counts and, per query, its (record index, local position) hits as
+        a list of pairs in BWT-row order."""
+        counts, seq_idx, local, offsets = self.count_locate_arrays(queries, cap=cap)
+        pairs = list(zip(seq_idx.tolist(), local.tolist()))
+        return counts, [pairs[offsets[i] : offsets[i + 1]] for i in range(len(queries))]
+
+    def locate_batch(self, queries, *, cap: int = 8) -> list[list[tuple[int, int]]]:
+        """(record index, local position) hits per query, in BWT-row order."""
+        return self.count_locate_batch(queries, cap=cap)[1]
+
+    def search_ranges_batch(self, queries) -> tuple[np.ndarray, np.ndarray]:
+        """Final BWT ranges per query (int64, inclusive; empty iff start > end)."""
+        qt, ql, flags = self._upload(*self.encode_queries(queries))
+        starts, ends = search_ranges_t(self.device_index, qt, ql, **flags)
+        n = len(queries)
+        return starts.cpu().numpy()[:n], ends.cpu().numpy()[:n]
+
+    def count(self, query) -> int:
+        """Occurrence count of one query."""
+        return int(self.count_batch([query])[0])
+
+    def locate(self, query) -> list[tuple[int, int]]:
+        """(record index, local position) hits of one query."""
+        return self.locate_batch([query])[0]
+
+    def release(self) -> None:
+        """Drop this engine's device tensors now, so that a server cycling
+        through indexes on one card can free the memory
+        (``torch.cuda.empty_cache()`` returns it to the driver).  The engine
+        is unusable afterwards."""
+        self.device_index = None
+        self._crumb_inv = None
 
     def count_locate_stream(self, query_batches, *, cap: int = 8, depth: int = 2):
         """Pipelined bulk serving: a generator over batches, each a list of
@@ -286,7 +320,7 @@ class FmQueryEngine:
     def _assemble_flat_positions(self, counts, text_pos, starts, offsets, cap):
         """Ragged assembly of the walked positions; queries over ``cap``
         expand their BWT rows on the device (from range start + cumulative
-        count pairs) and read their SA words through window_read."""
+        count pairs) and walk them through lf_walk."""
         counts = counts.astype(np.int64)
         flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
         over = counts > cap

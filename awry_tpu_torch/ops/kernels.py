@@ -1,17 +1,22 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, the nvcc
 build and the ctypes binding.
 
-Two kernels carry the seed-walk-verify path (sources under ``csrc/``, each
-with a note on the TPU kernel it replaces, its bound and its design):
+Three kernels carry the seed-walk-verify path (sources under ``csrc/``,
+each with a note on the TPU kernel it replaces, its bound and its design):
 
 * ``window_read(flat, wbase, k)`` - ``words[i, j] = flat[clamp(wbase[i],
-  k-1, len-1) - j]``: the k-mer seed pair, the mark=1 SA read and the
+  k-1, len-1) - j]``: the k-mer seed pair, the SA reads (mark=1: the row's
+  SA value; mark>1: the marked SA value at the mark rank, k=1) and the
   verify text window.
 * ``occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes)`` - both endpoint
   ranks of an LF range update from the fused block rows.
+* ``backstep(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset,
+  ambiguity_idx)`` - one marked-walk visit per row: the LF-stepped row and
+  the packed (mark_rank << 1) | mark_bit.
 
 Tables are int32 tensors holding uint32 bit patterns; positions are int64;
-outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``).
+outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``), but
+for backstep's stepped rows, which are int64 positions.
 
 A wrapper takes its plain version only when its inputs are CPU tensors; on
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -36,7 +41,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("window_read.cu", "occ_pair.cu")
+SOURCES = ("window_read.cu", "occ_pair.cu", "backstep.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -115,6 +120,8 @@ def _lib():
             lib.awry_window_read.argtypes = [i32, p, i64, p, i64, i32, p, p]
             lib.awry_occ_pair.restype = i32
             lib.awry_occ_pair.argtypes = [i32, p, i64, i32, i32, i32, p, p, p, p, i64, p, p, p]
+            lib.awry_backstep.restype = i32
+            lib.awry_backstep.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, p, i64, p, p, p]
             _lib_handle = lib
         return _lib_handle
 
@@ -197,25 +204,52 @@ window_read.launches = 0
 # -- occ_pair ------------------------------------------------------------------
 
 
-def _occ_plain(blocks, pos, sym, codes, nplanes: int) -> torch.Tensor:
-    """Occ(pos, sym) as int64 from the fused rows (the arithmetic of one
-    occ_pair endpoint): gather + XOR-polarity AND + masked SWAR popcount +
-    milestone."""
+def _fetch_rows(blocks, pos):
+    """(clamped pos, the fused rows holding it as int64 values in [0, 2**32))."""
     p = pos.clamp(0, blocks.shape[0] * 256 - 1)
-    rows = blocks[p >> 8].to(torch.int64) & _FULL  # [R, row_words]
+    return p, blocks[p >> 8].to(torch.int64) & _FULL  # [R, row_words]
+
+
+def _word_masks(local: torch.Tensor, in_word: torch.Tensor) -> torch.Tensor:
+    """[R, 8] masks over a block's 8 words: all ones below the word of
+    ``local``, ``in_word`` at it, zero above."""
+    word = (local >> 5)[:, None]
+    lane = torch.arange(8, device=local.device)[None, :]
+    return torch.where(lane < word, _FULL, torch.where(lane == word, in_word[:, None], 0))
+
+
+def _occ_rows(rows, p, sym, codes, nplanes: int) -> torch.Tensor:
+    """Occ(p, sym) as int64 from already fetched rows: XOR-polarity AND +
+    inclusive masked SWAR popcount + milestone."""
     code = codes[sym].to(torch.int64)
     occv = torch.full((p.shape[0], 8), _FULL, dtype=torch.int64, device=p.device)
     for v in range(nplanes):
         pol = (((code >> v) & 1) - 1) & _FULL  # bit set -> 0, clear -> all ones
         occv &= rows[:, v * 8 : (v + 1) * 8] ^ pol[:, None]
     local = p & 255
-    word = (local >> 5)[:, None]
-    lane = torch.arange(8, device=p.device)[None, :]
-    in_word = (_FULL >> (31 - (local & 31)))[:, None]
-    mask = torch.where(lane < word, _FULL, torch.where(lane == word, in_word, 0))
-    pop = popcount32(occv & mask).sum(dim=1)
+    pop = popcount32(occv & _word_masks(local, _FULL >> (31 - (local & 31)))).sum(dim=1)
     milestone = rows.gather(1, (nplanes * 8 + sym.to(torch.int64))[:, None])[:, 0]
     return milestone + pop
+
+
+def _occ_plain(blocks, pos, sym, codes, nplanes: int) -> torch.Tensor:
+    """Occ(pos, sym) as int64 from the fused rows (the arithmetic of one
+    occ_pair endpoint)."""
+    p, rows = _fetch_rows(blocks, pos)
+    return _occ_rows(rows, p, sym, codes, nplanes)
+
+
+def _bit_at(rows, offset: int, p) -> torch.Tensor:
+    """Bit (p & 255) of the 256-bit field at word ``offset`` of each row."""
+    local = p & 255
+    word = rows.gather(1, (offset + (local >> 5))[:, None])[:, 0]
+    return (word >> (local & 31)) & 1
+
+
+def _symbol_rows(rows, p, c2i, nplanes: int) -> torch.Tensor:
+    """BWT symbol index (int64) at p: its plane bits form the code."""
+    code = sum(_bit_at(rows, v * 8, p) << v for v in range(nplanes))
+    return c2i[code].to(torch.int64)
 
 
 def occ_pair_plain(blocks, pos_a, pos_b, sym, codes, nplanes: int):
@@ -263,3 +297,68 @@ def occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes: int):
 
 
 occ_pair.launches = 0
+
+
+# -- backstep ------------------------------------------------------------------
+
+
+def backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int):
+    """Plain version of backstep (gather + SWAR popcounts)."""
+    p, r = _fetch_rows(blocks, rows)
+    sym = _symbol_rows(r, p, c2i, nplanes)
+    sentinel = sym == 0
+    safe = torch.where(sentinel, ambiguity_idx, sym)
+    stepped = prefix_sums[safe] + _occ_rows(r, p, safe, codes, nplanes) - 1
+    local = p & 255
+    before = _word_masks(local, (1 << (local & 31)) - 1)
+    marks = r[:, mark_offset : mark_offset + 8]
+    mark_rank = r[:, mark_offset + 8] + popcount32(marks & before).sum(dim=1)
+    packed = (mark_rank << 1) | _bit_at(r, mark_offset, p)
+    return torch.where(sentinel, 0, stepped), as_int32_bits(packed)
+
+
+def backstep(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int):
+    """(int64[R], int32[R]): the LF-stepped row (0 for sentinel rows, whose
+    rank uses ``ambiguity_idx``) and ``(mark_rank << 1) | mark_bit`` as a
+    uint32 bit pattern, from one read of each row.
+
+    blocks: int32[num_blocks, row_words] fused rows, with the 8 mark words
+    at ``mark_offset`` (even) and the mark milestone after them; rows:
+    int64[R] (clamped into the table); prefix_sums: int64[cardinality + 1];
+    codes: int32[cardinality] symbol -> occurrence code; c2i:
+    int32[2**nplanes] code -> symbol; nplanes: 3 (nucleotide) or 5 (amino)."""
+    if _on_cpu(blocks, rows, prefix_sums, codes, c2i):
+        return backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+    _check("blocks", blocks, torch.int32, 2)
+    for name, t, dt in (("rows", rows, torch.int64), ("prefix_sums", prefix_sums, torch.int64),
+                        ("codes", codes, torch.int32), ("c2i", c2i, torch.int32)):
+        _check(name, t, dt, 1)
+    row_words = blocks.shape[1]
+    card = codes.shape[0]
+    if (
+        nplanes not in (3, 5) or row_words % 4 or row_words < nplanes * 8 + card
+        or prefix_sums.shape[0] != card + 1 or c2i.shape[0] != 1 << nplanes
+        or mark_offset % 2 or mark_offset < nplanes * 8 + card or mark_offset + 9 > row_words
+        or not 0 < ambiguity_idx < card
+    ):
+        raise ValueError(
+            f"backstep: bad row layout (row_words={row_words}, nplanes={nplanes}, card={card}, "
+            f"mark_offset={mark_offset}, ambiguity_idx={ambiguity_idx})"
+        )
+    if blocks.data_ptr() % 16:
+        raise ValueError("backstep: blocks must be 16-byte aligned (uint4 loads)")
+    r = rows.shape[0]
+    stepped = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    mark = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    if r:
+        rc = _lib().awry_backstep(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], row_words, nplanes,
+            prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), mark_offset, ambiguity_idx,
+            rows.data_ptr(), r, stepped.data_ptr(), mark.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "backstep")
+        backstep.launches += 1
+    return stepped, mark
+
+
+backstep.launches = 0

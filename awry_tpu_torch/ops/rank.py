@@ -2,8 +2,9 @@
 
 Occ(pos, sym) = count of sym in BWT[0..=pos]: the block's milestone for
 sym plus an inclusive masked popcount of the AND over XOR-polarity planes.
-The LF range update ranks both endpoints through the ``occ_pair`` kernel.
-Positions, ranges and counts are int64; symbols int32.
+The LF range update ranks both endpoints through the ``occ_pair`` kernel;
+the LF step of single rows (the marked walk's visit) goes through the
+``backstep`` kernel.  Positions, ranges and counts are int64; symbols int32.
 """
 
 from __future__ import annotations
@@ -41,3 +42,26 @@ def update_range(dev: FmDeviceIndex, starts: torch.Tensor, ends: torch.Tensor, s
     )
     c = prefix_sum_select(dev, sym)
     return c + (occ_a.to(torch.int64) & _FULL), c + (occ_b.to(torch.int64) & _FULL) - 1
+
+
+def symbol_at(dev: FmDeviceIndex, pos: torch.Tensor) -> torch.Tensor:
+    """BWT symbol index (int64) at each row, by plain PyTorch."""
+    p, rows = kernels._fetch_rows(dev.blocks, pos)
+    return kernels._symbol_rows(rows, p, dev.c2i, dev.num_planes)
+
+
+def backstep_mark(dev: FmDeviceIndex, pos: torch.Tensor):
+    """One marked-walk visit per row from one ``backstep`` launch:
+    (LF-stepped row int64 (sentinel rows -> 0), mark bit bool, mark rank
+    int64 = marked rows strictly before the row)."""
+    stepped, packed = kernels.backstep(
+        dev.blocks, pos, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
+        dev.mark_offset, dev.alphabet.ambiguity_idx,
+    )
+    packed = packed.to(torch.int64) & _FULL
+    return stepped, (packed & 1) == 1, packed >> 1
+
+
+def backstep(dev: FmDeviceIndex, pos: torch.Tensor) -> torch.Tensor:
+    """One LF step per row (sentinel rows -> 0)."""
+    return backstep_mark(dev, pos)[0]

@@ -3,7 +3,8 @@
 On genome-scale indexes a backward-search range collapses almost at once:
 after S consumed symbols the expected width is bwt_len / 4^S << 1.  This
 path stops the search at the switch step S, reads the single candidate
-row's text position (one SA read at mark ratio 1), and confirms the
+row's text position (lf_walk: one SA read at mark ratio 1, a marked LF
+walk above it), and confirms the
 remaining qlen - S query symbols against the packed text - replacing the
 other rank steps with one window read and static compares, with locate
 free for verified hits.  Results are exact:
@@ -157,7 +158,7 @@ def count_locate_verify_t(
     jclip = torch.minimum(jslot[None, :], g_width.clamp_min(1)[:, None] - 1)
     slot_rows = g_start[:, None] + jclip
 
-    # One SA read and one text compare serve singleton lanes and wide slots;
+    # One LF walk and one text compare serve singleton lanes and wide slots;
     # non-candidate lanes read their own (clamped) start row.
     rows_main = starts.clamp_max(dev.bwt_len - 1)
     qt_g = qt[:, lane_safe]  # [L, G]

@@ -7,46 +7,66 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: a CUDA device is required; prints its name and power limit.
 2. Build: compiles the CUDA kernels from awry_tpu_torch/csrc/ (nvcc, one
-   process per source) into awry_tpu_torch/_build/.
+   process per source, all started together) into awry_tpu_torch/_build/.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card, exactly, at main-path shapes: window_read (k = 2, 3) over a 1 GB
-   SA-sized table, occ_pair over chr1-sized nucleotide rows and amino rows.
-4. Main path: a chr1-scale index (250 Mbp of seeded random ACGT, k-mer
-   seed length 13, mark ratio 1, SA ratio 8) built by the port's builder,
+   card, exactly, at main-path shapes: window_read (k = 1, 2, 3) over a 1 GB
+   SA-sized table, occ_pair and backstep over chr1-sized nucleotide rows and
+   Swiss-Prot-sized amino rows (backstep rows include 0, the last row and
+   rows past the end).
+4. chr1 path: a chr1-scale index (250 Mbp of seeded random ACGT, k-mer seed
+   length 13, mark ratio 1, SA ratio 8) built by the port's builder,
    shipped to the card, then 4 batches of 524,288 30 bp reads drawn from
    the text plus a batch holding a few hundred random reads, served
    through FmQueryEngine.count_locate_stream.  Kernel launch counts are set
    to 0 just before and read just after.
-5. Correctness: every reported hit spells its query in the text, every
+5. chr1 correctness: every reported hit spells its query in the text, every
    drawn read is found at its own position, and for 64 sampled queries the
    count equals a naive overlapping scan of the text.
-6. Report: end-to-end queries/s and engine stats; how the time splits
+6. chr1 report: end-to-end queries/s and engine stats; how the time splits
    between host encode, serving from the wire and the device (profiler);
-   per-kernel device times
-   (CUDA events, L2 flushed before each launch) at the shapes the main path
-   gave each kernel, beside the plain version, one torch indexing call
-   (window_read only) and the bound from bytes moved.
+   per-kernel device times (CUDA events, L2 flushed before each launch) at
+   the shapes the path gave each kernel, beside the plain version, one
+   torch indexing call (window_read only) and the bound from bytes moved.
+   The chr1 engine is then released and the card's cache emptied.
+7. GRCh38-shaped path (bench.py grch38_3.1Gbp_dna: 100 bp reads, batches of
+   524,288, k = 13, mark ratio 4, SA ratio 8; scale cut to 1 Gbp): 24
+   records in the proportions of GRCh38's chromosomes 1-22, X and Y, each
+   seeded random ACGT between two 10,000-symbol N runs, joined by the N
+   delimiter; one 1 kbp segment planted 3 times (wide lanes) and one 12
+   times (re-dispatched lanes over the locate cap).  2 batches of 524,288
+   reads drawn from record interiors plus a 512-read batch (random reads,
+   reads of both repeats, reads right after a leading N run, drawn reads),
+   served through count_locate_stream with the counts set to 0 just
+   before.  Every locate walks the marked LF walk through backstep.
+8. GRCh38 correctness, per record: every hit spells its query in its
+   record, every drawn read (and every planted copy of a repeat read) is
+   found at its own (record, local), 64 counts equal a naive scan, and the
+   12x repeat reads report 12 hits (or more, confirmed by naive scan).
+9. GRCh38 report: as phase 6, with the walk visits' backstep times.
 
 The last three lines are the card's name and power limit, the kernels JSON
 and {"ok": true, "device": {...}}.  ``--record PATH`` also writes the full
-record (every call site, the time split, the checks) as JSON.
+record (every call site, the time splits, the checks) as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from multiprocessing import shared_memory
 
 import numpy as np
 import torch
 
 from awry_tpu_torch import Alphabet, FmBuildArgs, build_from_records
-from awry_tpu_torch.alphabet import index_to_code_table
+from awry_tpu_torch.alphabet import code_to_index_table, index_to_code_table
 from awry_tpu_torch.ops import FmQueryEngine, fused_row_words, kernels
 
 N_SYMBOLS = 250_000_000  # chr1 scale (bench.py chr1_250Mbp_dna)
@@ -57,14 +77,35 @@ NUM_BATCHES = 4
 NUM_RANDOM = 384
 NUM_NAIVE = 64
 
+# GRCh38-shaped path (bench.py grch38_3.1Gbp_dna), scale cut to 1 Gbp.
+G_SYMBOLS = 1_000_000_000
+G_QLEN = 100
+G_MARK = 4
+G_NUM_BATCHES = 2
+N_RUN = 10_000  # N symbols opening and closing each record
+REPEAT_LEN = 1_000
+# GRCh38 chromosome lengths in bp, chr1..chr22, chrX, chrY (GRCh38.p14).
+GRCH38_LENGTHS = (
+    248_956_422, 242_193_529, 198_295_559, 190_214_555, 181_538_259, 170_805_979,
+    159_345_973, 145_138_636, 138_394_717, 133_797_422, 135_086_622, 133_275_309,
+    114_364_328, 107_043_718, 101_991_189, 90_338_345, 83_257_441, 80_373_285,
+    58_617_616, 64_444_167, 46_709_983, 50_818_468, 156_040_895, 57_227_415,
+)
+GRCH38_NAMES = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > 2x the 50 MB L2
-SOURCES = {"window_read": "awry_tpu_torch/csrc/window_read.cu", "occ_pair": "awry_tpu_torch/csrc/occ_pair.cu"}
+KERNELS = ("window_read", "occ_pair", "backstep")
+SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {
     "window_read": "awry_tpu/ops/sweep.py:1036",  # _anchored_text_kernel
     "occ_pair": "awry_tpu/ops/sweep.py:1084",  # _occ_pair_pay_kernel_anchored (and :1062)
+    "backstep": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored
 }
+# Arguments of each kernel that carry per-request data (recorded as copies).
+REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,)}
+LETTERS = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
 def log(msg: str) -> None:
@@ -79,6 +120,55 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def launch_counts() -> dict:
+    return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+# -- naive scans (spawned processes, each copying the text from shared memory) -
+
+_SCAN_TEXT = b""  # the text a scan worker holds (set by its initializer)
+
+
+def _scan_init(name: str, size: int) -> None:
+    global _SCAN_TEXT
+    shm = shared_memory.SharedMemory(name=name)
+    try:
+        _SCAN_TEXT = bytes(shm.buf[:size])
+    finally:
+        shm.close()
+
+
+def _naive_count(q: bytes) -> int:
+    """Overlapping occurrences of q in the worker's text."""
+    n, at = 0, _SCAN_TEXT.find(q)
+    while at >= 0:
+        n += 1
+        at = _SCAN_TEXT.find(q, at + 1)
+    return n
+
+
+def naive_counts(text: bytes, queries: list[bytes]) -> list[int]:
+    """Naive overlapping counts of each query, scanned by one process per
+    CPU; the text reaches them through shared memory (passing it as an
+    argument pickles it once per process, several times slower).  The pool
+    and the shared memory are released before returning."""
+    shm = shared_memory.SharedMemory(create=True, size=len(text))
+    try:
+        shm.buf[: len(text)] = text
+        ctx = multiprocessing.get_context("spawn")
+        workers = min(len(queries), os.cpu_count() or 1)
+        with ctx.Pool(workers, initializer=_scan_init, initargs=(shm.name, len(text))) as pool:
+            return pool.map(_naive_count, queries, chunksize=1)
+    finally:
+        shm.close()
+        shm.unlink()
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
@@ -88,19 +178,22 @@ def random_words(shape, device, gen) -> torch.Tensor:
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
-    """Largest difference of the uint32 values two int32 bit-pattern tensors hold."""
-    if got.shape != want.shape:
-        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
-    diff = (got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)
+    """Largest difference of the values two tensors hold (int32 tensors as
+    the uint32 bit patterns they carry)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} != {want.dtype} {tuple(want.shape)}")
+    mask = 0xFFFFFFFF if got.dtype == torch.int32 else -1
+    diff = (got.to(torch.int64) & mask) - (want.to(torch.int64) & mask)
     return int(diff.abs().max()) if diff.numel() else 0
 
 
 def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
     """Each kernel against its plain version on the card, exact equality."""
     out = {}
+    reqs = BATCH + BATCH // 4  # the walk's rows per verify batch (B + 4 slots per wide group)
     table = random_words((N_SYMBOLS + 1,), device, gen)
-    wbase = torch.randint(-8, table.shape[0] + 8, (BATCH + BATCH // 4,), device=device, generator=gen)
-    for k in (2, 3):
+    wbase = torch.randint(-8, table.shape[0] + 8, (reqs,), device=device, generator=gen)
+    for k in (1, 2, 3):
         err = max_abs_err(kernels.window_read(table, wbase, k), kernels.window_read_plain(table, wbase, k))
         if err != 0:
             raise AssertionError(f"window_read k={k} disagrees with its plain version (max abs err {err})")
@@ -120,39 +213,90 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         if err != 0:
             raise AssertionError(f"occ_pair ({alphabet.name}) disagrees with its plain version (max abs err {err})")
         out[f"occ_pair_{alphabet.name.lower()}"] = {"requests": BATCH, "rows": nb, "row_words": rw, "max_abs_err": err}
+
+        # backstep: rows 0, the last row (bwt_len - 1 = symbols), past the
+        # end and below 0, then random rows.
+        c2i = torch.from_numpy(code_to_index_table(alphabet).astype(np.int32)).to(device)
+        prefix_sums = torch.randint(0, 2**32, (alphabet.cardinality + 1,), device=device, generator=gen)
+        edges = torch.tensor([0, symbols, symbols + 1, nb * 256 - 1, nb * 256 + 7, -3], device=device)
+        rows = torch.cat([edges, torch.randint(0, nb * 256, (reqs - edges.shape[0],), device=device, generator=gen)])
+        args = (blocks, rows, prefix_sums, codes, c2i, alphabet.num_planes,
+                alphabet.num_planes * 8 + alphabet.cardinality, alphabet.ambiguity_idx)
+        got = kernels.backstep(*args)
+        want = kernels.backstep_plain(*args)
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        if err != 0:
+            raise AssertionError(f"backstep ({alphabet.name}) disagrees with its plain version (max abs err {err})")
+        out[f"backstep_{alphabet.name.lower()}"] = {"requests": reqs, "rows": nb, "row_words": rw, "max_abs_err": err}
+        del blocks, pos_a, pos_b, sym, rows, got, want
     return out
 
 
-# -- phase 4 -----------------------------------------------------------------
+# -- serving a path ------------------------------------------------------------
 
 
 @contextlib.contextmanager
 def recording_kernel_inputs(calls: list):
     """Record the inputs of every kernel call made inside the block (the
     wrappers themselves still run and count their launches)."""
-    window_read, occ_pair = kernels.window_read, kernels.occ_pair
+    real = {name: getattr(kernels, name) for name in KERNELS}
 
-    def rec_window_read(flat, wbase, k):
-        calls.append(("window_read", (flat, wbase.clone(), k)))
-        return window_read(flat, wbase, k)
+    def recorder(name):
+        fn, keep = real[name], REQUEST_ARGS[name]
 
-    def rec_occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes):
-        calls.append(("occ_pair", (blocks, pos_a.clone(), pos_b.clone(), sym.clone(), codes, nplanes)))
-        return occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes)
+        def rec(*args):
+            calls.append((name, tuple(a.clone() if i in keep else a for i, a in enumerate(args))))
+            return fn(*args)
 
-    # A wrapper counts its launches on the function its module name binds,
-    # so while patched the counts land on these stand-ins.
-    rec_window_read.launches = rec_occ_pair.launches = 0
-    kernels.window_read, kernels.occ_pair = rec_window_read, rec_occ_pair
+        # A wrapper counts its launches on the function its module name
+        # binds, so while patched the counts land on this stand-in.
+        rec.launches = 0
+        return rec
+
+    for name in KERNELS:
+        setattr(kernels, name, recorder(name))
     try:
         yield calls
     finally:
-        kernels.window_read, kernels.occ_pair = window_read, occ_pair
+        for name in KERNELS:
+            setattr(kernels, name, real[name])
 
 
-def main_path(device: torch.device, rng: np.random.Generator, n_symbols: int, batch: int, num_batches: int):
-    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
-    text_np = letters[rng.integers(0, 4, size=n_symbols, dtype=np.uint8)]
+def serve(engine: FmQueryEngine, batches: list, device: torch.device) -> dict:
+    """Warm up on the first batch (recording the inputs the path gives each
+    kernel), then serve every batch with the launch counts set to 0 just
+    before and read just after."""
+    calls: list = []
+    with recording_kernel_inputs(calls):
+        next(engine.count_locate_stream([batches[0]]))
+    for k in engine.stats:
+        engine.stats[k] = 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = list(engine.count_locate_stream(batches))
+    torch.cuda.synchronize(device)
+    serve_s = time.perf_counter() - t0
+    return {"results": results, "serve_s": serve_s, "launches": launch_counts(), "calls": calls,
+            "queries": sum(len(b) for b in batches)}
+
+
+def ship(index, device: torch.device) -> tuple[FmQueryEngine, float]:
+    t0 = time.perf_counter()
+    engine = FmQueryEngine(index, device=device)
+    torch.cuda.synchronize(device)
+    ship_s = time.perf_counter() - t0
+    dev = engine.device_index
+    table_bytes = {
+        name: getattr(dev, name).numel() * getattr(dev, name).element_size()
+        for name in ("blocks", "kmer_flat", "text_sampled_sa", "text_packed")
+    }
+    log(f"index on {device}: ship {ship_s:.3f} s, switch step {engine._verify_s}, mark ratio "
+        f"{dev.mark_ratio}, tables {table_bytes}")
+    return engine, ship_s
+
+
+def chr1_path(device: torch.device, rng: np.random.Generator) -> dict:
+    text_np = LETTERS[rng.integers(0, 4, size=N_SYMBOLS, dtype=np.uint8)]
     text = text_np.tobytes()
 
     t0 = time.perf_counter()
@@ -162,64 +306,131 @@ def main_path(device: torch.device, rng: np.random.Generator, n_symbols: int, ba
     )
     build_s = time.perf_counter() - t0
     log(f"host index build seconds: {build_s:.3f}")
-
-    t0 = time.perf_counter()
-    engine = FmQueryEngine(index, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    ship_s = time.perf_counter() - t0
-    dev = engine.device_index
-    table_bytes = {
-        name: getattr(dev, name).numel() * getattr(dev, name).element_size()
-        for name in ("blocks", "kmer_flat", "text_sampled_sa", "text_packed")
-    }
-    log(f"index on {device}: ship {ship_s:.3f} s, switch step {engine._verify_s}, tables {table_bytes}")
+    engine, ship_s = ship(index, device)
+    del index
 
     # Reads drawn from the text (each batch keeps its start positions), and
     # a last batch of random reads with a few drawn ones.
-    starts = [rng.integers(0, n_symbols - QLEN, size=batch) for _ in range(num_batches)]
-    rnd = letters[rng.integers(0, 4, size=(NUM_RANDOM, QLEN), dtype=np.uint8)]
-    tail_starts = rng.integers(0, n_symbols - QLEN, size=512 - NUM_RANDOM)
+    starts = [rng.integers(0, N_SYMBOLS - QLEN, size=BATCH) for _ in range(NUM_BATCHES)]
+    rnd = LETTERS[rng.integers(0, 4, size=(NUM_RANDOM, QLEN), dtype=np.uint8)]
+    tail_starts = rng.integers(0, N_SYMBOLS - QLEN, size=512 - NUM_RANDOM)
     batches = [[text[s : s + QLEN] for s in st.tolist()] for st in starts]
     batches.append([r.tobytes() for r in rnd] + [text[s : s + QLEN] for s in tail_starts.tolist()])
+    run = serve(engine, batches, device)
+    run.update({
+        "text_np": text_np, "text": text, "engine": engine, "build_s": build_s, "ship_s": ship_s,
+        "starts": starts, "tail_starts": tail_starts, "random_reads": rnd, "batches": batches,
+    })
+    return run
 
-    # Warm-up on the first batch, recording the inputs the main path gives
-    # each kernel (timed in the report phase).
-    calls: list = []
-    with recording_kernel_inputs(calls):
-        next(engine.count_locate_stream([batches[0]]))
-    for k in engine.stats:
-        engine.stats[k] = 0
 
-    kernels.window_read.launches = 0
-    kernels.occ_pair.launches = 0
+def grch38_text(rng: np.random.Generator):
+    """The joined text (uint8 ASCII) of 24 records in GRCh38's chromosome
+    proportions summing to G_SYMBOLS, each seeded random ACGT between two
+    N_RUN N runs, joined by the N delimiter; plus record starts and
+    lengths."""
+    w = np.asarray(GRCH38_LENGTHS, dtype=np.float64)
+    lengths = np.floor(w / w.sum() * G_SYMBOLS).astype(np.int64)
+    lengths[0] += G_SYMBOLS - int(lengths.sum())
+    starts = np.concatenate([[0], np.cumsum(lengths + 1)[:-1]]).astype(np.int64)
+    text = LETTERS[rng.integers(0, 4, size=int(lengths.sum()) + len(lengths) - 1, dtype=np.uint8)]
+    for s, ln in zip(starts.tolist(), lengths.tolist()):
+        text[s : s + N_RUN] = ord("N")
+        text[s + ln - N_RUN : s + ln + 1] = ord("N")  # closing run and the delimiter
+    return text, starts, lengths
+
+
+def plant_repeats(rng, text, starts, lengths) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Copy one REPEAT_LEN segment to 3 and another to 12 random,
+    non-overlapping places inside record interiors; returns each segment
+    with its copies' global positions."""
+    weights = lengths / lengths.sum()
+    taken: list[int] = []
+    out = []
+    for copies in (3, 12):
+        seg = LETTERS[rng.integers(0, 4, size=REPEAT_LEN, dtype=np.uint8)]
+        pos: list[int] = []
+        while len(pos) < copies:
+            r = int(rng.choice(len(lengths), p=weights))
+            p = int(starts[r] + N_RUN + rng.integers(0, lengths[r] - 2 * N_RUN - REPEAT_LEN))
+            if all(abs(p - q) >= REPEAT_LEN for q in taken):
+                taken.append(p)
+                pos.append(p)
+        for p in pos:
+            text[p : p + REPEAT_LEN] = seg
+        out.append((seg, np.asarray(sorted(pos), dtype=np.int64)))
+    return out
+
+
+def draw_positions(rng, starts, lengths, n: int) -> np.ndarray:
+    """n global read starts uniform over the records' non-N interiors."""
+    valid = lengths - 2 * N_RUN - G_QLEN + 1
+    cum = np.cumsum(valid)
+    u = rng.integers(0, cum[-1], size=n)
+    r = np.searchsorted(cum, u, side="right")
+    return starts[r] + N_RUN + (u - (cum[r] - valid[r]))
+
+
+def grch38_path(device: torch.device, rng: np.random.Generator) -> dict:
     t0 = time.perf_counter()
-    results = list(engine.count_locate_stream(batches))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    serve_s = time.perf_counter() - t0
-    launches = {"window_read": kernels.window_read.launches, "occ_pair": kernels.occ_pair.launches}
-    nq = sum(len(b) for b in batches)
-    return {
-        "text_np": text_np, "text": text, "index": index, "engine": engine, "build_s": build_s,
-        "ship_s": ship_s, "starts": starts, "tail_starts": tail_starts, "random_reads": rnd,
-        "batches": batches, "results": results, "serve_s": serve_s, "queries": nq,
-        "launches": launches, "calls": calls,
-    }
+    text_np, rec_starts, rec_lengths = grch38_text(rng)
+    repeats = plant_repeats(rng, text_np, rec_starts, rec_lengths)
+    text = text_np.tobytes()
+    records = [(name, text[s : s + ln]) for name, s, ln in zip(GRCH38_NAMES, rec_starts.tolist(), rec_lengths.tolist())]
+    log(f"text: {len(records)} records, {text_np.shape[0]} symbols ({time.perf_counter() - t0:.3f} s)")
+
+    t0 = time.perf_counter()
+    index = build_from_records(
+        records,
+        FmBuildArgs(lookup_table_kmer_len=KMER_LEN, locate_mark_ratio=G_MARK, suffix_array_compression_ratio=8),
+    )
+    build_s = time.perf_counter() - t0
+    del records
+    log(f"host index build seconds: {build_s:.3f}")
+    if not np.array_equal(index.seq_starts, rec_starts):
+        raise AssertionError("record starts of the index disagree with the joined text")
+    engine, ship_s = ship(index, device)
+    del index
+
+    # Per batch: the reads' symbols [n, G_QLEN] and the required hits as
+    # (query, global position) pairs.
+    ar = np.arange(G_QLEN)
+    batches, qsyms, required = [], [], []
+    for _ in range(G_NUM_BATCHES):
+        st = draw_positions(rng, rec_starts, rec_lengths, BATCH)
+        batches.append([text[s : s + G_QLEN] for s in st.tolist()])
+        qsyms.append(text_np[st[:, None] + ar])
+        required.append((np.arange(BATCH), st))
+    # Tail batch: 256 random reads, 64 reads of each repeat, 64 reads
+    # starting 0-3 symbols after a leading N run, 64 drawn reads.
+    rnd = LETTERS[rng.integers(0, 4, size=(256, G_QLEN), dtype=np.uint8)]
+    rep_off = [rng.integers(0, REPEAT_LEN - G_QLEN + 1, size=64) for _ in repeats]
+    rep_reads = [seg[o[:, None] + ar] for (seg, _), o in zip(repeats, rep_off)]
+    after_n = rec_starts[rng.integers(0, len(rec_starts), size=64)] + N_RUN + rng.integers(0, 4, size=64)
+    drawn = draw_positions(rng, rec_starts, rec_lengths, 64)
+    tail_syms = np.concatenate([rnd, *rep_reads, text_np[after_n[:, None] + ar], text_np[drawn[:, None] + ar]])
+    batches.append([r.tobytes() for r in tail_syms])
+    qsyms.append(tail_syms)
+    q_idx, q_pos = [np.arange(384, 512)], [np.concatenate([after_n, drawn])]
+    for i, ((_, copies), o) in enumerate(zip(repeats, rep_off)):
+        lanes = 256 + 64 * i + np.arange(64)
+        q_idx.append(np.repeat(lanes, len(copies)))
+        q_pos.append((o[:, None] + copies[None, :]).reshape(-1))
+    required.append((np.concatenate(q_idx), np.concatenate(q_pos)))
+
+    run = serve(engine, batches, device)
+    run.update({
+        "text_np": text_np, "text": text, "engine": engine, "build_s": build_s, "ship_s": ship_s,
+        "rec_starts": rec_starts, "rec_lengths": rec_lengths, "repeats": repeats, "batches": batches,
+        "qsyms": qsyms, "required": required,
+    })
+    return run
 
 
-# -- phase 5 -----------------------------------------------------------------
+# -- correctness -----------------------------------------------------------------
 
 
-def naive_count(text: bytes, q: bytes) -> int:
-    n, at = 0, text.find(q)
-    while at >= 0:
-        n += 1
-        at = text.find(q, at + 1)
-    return n
-
-
-def check_results(run: dict, rng: np.random.Generator) -> dict:
+def check_chr1(run: dict, rng: np.random.Generator) -> dict:
     text_np, text = run["text_np"], run["text"]
     n = text_np.shape[0]
     ar = np.arange(QLEN)
@@ -258,14 +469,59 @@ def check_results(run: dict, rng: np.random.Generator) -> dict:
     cl = run["results"][-1][0]
     picks = [(run["batches"][0][i], int(c0[i])) for i in rng.integers(0, len(c0), size=NUM_NAIVE - 16)]
     picks += [(run["batches"][-1][i], int(cl[i])) for i in range(16)]
-    for q, c in picks:
-        want = naive_count(text, q)
+    for (q, c), want in zip(picks, naive_counts(text, [q for q, _ in picks])):
         if c != want:
             raise AssertionError(f"count {c} != naive scan {want} for {q!r}")
     return {"hits_checked": checked_hits, "naive_checked": len(picks)}
 
 
-# -- phase 6 -----------------------------------------------------------------
+def check_grch38(run: dict, rng: np.random.Generator) -> dict:
+    text_np, text = run["text_np"], run["text"]
+    rec_starts, rec_lengths = run["rec_starts"], run["rec_lengths"]
+    total = text_np.shape[0]
+    ar = np.arange(G_QLEN)
+    checked_hits = 0
+    for b, res in enumerate(run["results"]):
+        counts, seq_idx, local, offsets = res
+        nb = len(run["batches"][b])
+        if counts.shape[0] != nb or offsets.shape[0] != nb + 1 or offsets[-1] != local.shape[0]:
+            raise AssertionError(f"batch {b}: malformed result shapes")
+        if not (np.diff(offsets) == counts.astype(np.int64)).all():
+            raise AssertionError(f"batch {b}: offsets and counts disagree")
+        if ((seq_idx < 0) | (seq_idx >= len(rec_starts))).any():
+            raise AssertionError(f"batch {b}: hit in no record")
+        if ((local < 0) | (local > rec_lengths[seq_idx] - G_QLEN)).any():
+            raise AssertionError(f"batch {b}: hit position outside its record")
+        gpos = rec_starts[seq_idx] + local
+        qidx = np.repeat(np.arange(nb), counts.astype(np.int64))
+        if not (text_np[gpos[:, None] + ar] == run["qsyms"][b][qidx]).all():
+            raise AssertionError(f"batch {b}: a reported hit does not spell its query in its record")
+        q_req, pos_req = run["required"][b]
+        if not np.isin(q_req * (total + 1) + pos_req, qidx * (total + 1) + gpos).all():
+            raise AssertionError(f"batch {b}: a drawn read or a planted copy was not found at its own position")
+        checked_hits += local.shape[0]
+
+    # Naive scans: 48 drawn reads of batch 0, 16 random reads of the tail,
+    # and every repeat read whose count is not its number of copies.
+    c0, cl = run["results"][0][0], run["results"][-1][0]
+    tail = run["batches"][-1]
+    picks = [(run["batches"][0][i], int(c0[i])) for i in rng.integers(0, len(c0), size=NUM_NAIVE - 16)]
+    picks += [(tail[i], int(cl[i])) for i in range(16)]
+    repeat_counts = {}
+    for i, (_, copies) in enumerate(run["repeats"]):
+        lanes = 256 + 64 * i + np.arange(64)
+        c = cl[lanes].astype(np.int64)
+        if (c < len(copies)).any():
+            raise AssertionError(f"a {len(copies)}x repeat read reports fewer hits than its copies")
+        picks += [(tail[j], int(cl[j])) for j in lanes[c != len(copies)]]
+        repeat_counts[f"{len(copies)}x"] = np.bincount(c).nonzero()[0].tolist()
+    for (q, c), want in zip(picks, naive_counts(text, [q for q, _ in picks])):
+        if c != want:
+            raise AssertionError(f"count {c} != naive scan {want} for {q[:20]!r}...")
+    return {"hits_checked": checked_hits, "naive_checked": len(picks), "repeat_counts_seen": repeat_counts}
+
+
+# -- reports -------------------------------------------------------------------
 
 
 def time_ms(fn, device, reps: int, flush: torch.Tensor) -> float:
@@ -311,11 +567,36 @@ def occ_pair_bound(blocks, pos_a, pos_b, sym, codes, nplanes) -> tuple[float, fl
     return float(sectors * 32 + r * 28), float(ops)
 
 
+def backstep_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx) -> tuple[float, float]:
+    """(bytes, ops): each distinct 32 B sector the visits touch (V plane
+    sectors per distinct row, the sector of the stepped symbol's milestone,
+    the sectors of the mark words up to the row's word and the mark
+    milestone's), the 8 B row in and the 12 B of results per request; ops
+    per visit: symbol V*3, rank V*16 + 8*3 + 2, mark bit and rank 8*3 + 4."""
+    spr = blocks.shape[1] // 8
+    p, r = kernels._fetch_rows(blocks, rows)
+    sym = kernels._symbol_rows(r, p, c2i, nplanes)
+    del r
+    safe = torch.where(sym == 0, ambiguity_idx, sym)
+    base = (p >> 8) * spr
+    word = (p & 255) >> 5
+    sectors = torch.unique(torch.cat([
+        (base[:, None] + torch.arange(nplanes, device=p.device)).reshape(-1),
+        base + ((nplanes * 8 + safe) >> 3),
+        base + (mark_offset >> 3),
+        base + ((mark_offset + word) >> 3),
+        base + ((mark_offset + 8) >> 3),
+    ])).numel()
+    n = rows.shape[0]
+    ops = n * (nplanes * 3 + nplanes * 16 + 8 * 3 + 2 + 8 * 3 + 4)
+    return float(sectors * 32 + n * 20), float(ops)
+
+
 def time_split(run: dict, device: torch.device) -> dict:
-    """Where the end-to-end time goes, over the main path's full batches:
-    the host encode alone, the same batches served from their pre-encoded
-    wire, and the device time of that serving from a profiler trace (its
-    share of the wire-served wall time is the device busy share)."""
+    """Where the end-to-end time goes, over the path's full batches: the
+    host encode alone, the same batches served from their pre-encoded wire,
+    and the device time of that serving from a profiler trace (its share of
+    the wire-served wall time is the device busy share)."""
     engine = run["engine"]
     full = [b for b in run["batches"] if len(b) == len(run["batches"][0])]
     t0 = time.perf_counter()
@@ -350,23 +631,28 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict]:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
     rows = []
     per_kernel = {}
+    visits = 0
     for kind, args in run["calls"]:
         if args[1].shape[0] < batch:
             continue  # a re-dispatch call, not the verify path's
+        fn = getattr(kernels, kind)
+        plain = getattr(kernels, f"{kind}_plain")
+        ms = time_ms(lambda: fn(*args), device, 20, flush)
+        plain_ms = time_ms(lambda: plain(*args), device, 5, flush)
+        lib_ms = None
         if kind == "window_read":
             flat, wbase, k = args
             site = f"{names.get(id(flat), 'table')} k={k}"
-            ms = time_ms(lambda: kernels.window_read(flat, wbase, k), device, 20, flush)
-            plain_ms = time_ms(lambda: kernels.window_read_plain(flat, wbase, k), device, 5, flush)
             idx = wbase.clamp(k - 1, flat.shape[0] - 1)[:, None] - torch.arange(k, device=device)
             lib_ms = time_ms(lambda: flat[idx], device, 20, flush)
-            nbytes, ops = window_read_bound(flat, wbase, k)
-        else:
+            nbytes, ops = window_read_bound(*args)
+        elif kind == "occ_pair":
             site = "rank step"
-            ms = time_ms(lambda: kernels.occ_pair(*args), device, 20, flush)
-            plain_ms = time_ms(lambda: kernels.occ_pair_plain(*args), device, 5, flush)
-            lib_ms = None
             nbytes, ops = occ_pair_bound(*args)
+        else:
+            visits += 1
+            site = f"walk visit {visits}"
+            nbytes, ops = backstep_bound(*args)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
         row = {
             "kernel": kind, "site": site, "requests": int(args[1].shape[0]), "ms": ms,
@@ -380,15 +666,43 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict]:
     return rows, per_kernel
 
 
+def report(name: str, run: dict, device: torch.device) -> dict:
+    """Log and return the path's throughput, stats, time split and sites."""
+    qps = run["queries"] / run["serve_s"]
+    stats = dict(run["engine"].stats)
+    log(f"  {name}: {qps:.1f} queries/s end to end, engine stats {json.dumps(stats)}")
+    split = time_split(run, device)
+    log(f"  {name} time split: {json.dumps(split)}")
+    rows, per_kernel = kernel_report(run, device)
+    for row in rows:
+        log("  " + json.dumps(row))
+    for kind, agg in per_kernel.items():
+        n = run["launches"][kind]
+        log(f"  {name} {kind}: {n} launches over {stats['batches']} verify batches "
+            f"({n / stats['batches']:.2f} per batch); per-batch ms {agg['ms']:.4f}")
+    return {
+        "build_index_s": run["build_s"], "ship_s": run["ship_s"], "serve_s": run["serve_s"],
+        "queries": run["queries"], "queries_per_s": qps, "stats": stats, "launches": run["launches"],
+        "time_split": split, "sites": rows, "per_kernel": per_kernel,
+    }
+
+
+def require_launches(name: str, launches: dict, kinds) -> None:
+    for kind in kinds:
+        if launches[kind] <= 0:
+            raise AssertionError(f"{kind} was not launched on the {name} path")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seed", type=int, default=0, help="seed of the synthetic text and reads")
+    parser.add_argument("--seed", type=int, default=0, help="seed of the synthetic texts and reads")
     parser.add_argument("--record", help="also write the full record as JSON to this file")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"phase 1 device: {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -410,48 +724,64 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(args.seed)
-    run = main_path(device, rng, N_SYMBOLS, BATCH, NUM_BATCHES)
-    qps = run["queries"] / run["serve_s"]
-    log(
-        f"phase 4 main path: {run['queries']} queries in {run['serve_s']:.3f} s = {qps:.1f} queries/s "
-        f"end to end; launches {run['launches']}; peak device memory "
-        f"{torch.cuda.max_memory_allocated(device)} B"
-    )
-    for name, n in run["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    paths = {}
+    run = chr1_path(device, rng)
+    log(f"phase 4 chr1 path: {run['queries']} queries in {run['serve_s']:.3f} s; launches {run['launches']}; "
+        f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
+    require_launches("chr1", run["launches"], ("window_read", "occ_pair"))
+    t0 = time.perf_counter()
+    checks = check_chr1(run, rng)
+    log(f"phase 5 chr1 correctness: {checks} ({time.perf_counter() - t0:.3f} s)")
+    log("phase 6 chr1 report:")
+    paths["chr1"] = report("chr1", run, device) | {"checks": checks}
+    paths["chr1"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    run["engine"].release()
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
 
     t0 = time.perf_counter()
-    checks = check_results(run, rng)
-    log(f"phase 5 correctness: {checks} ({time.perf_counter() - t0:.3f} s)")
+    run = grch38_path(device, rng)
+    log(f"phase 7 GRCh38-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; launches "
+        f"{run['launches']}; peak device memory {torch.cuda.max_memory_allocated(device)} B "
+        f"({time.perf_counter() - t0:.3f} s with text and build)")
+    require_launches("GRCh38-shaped", run["launches"], KERNELS)
+    stats = run["engine"].stats
+    if stats["wide_lanes"] <= 0 or stats["redis_lanes"] <= 0:
+        raise AssertionError(f"the GRCh38-shaped path took no wide or no re-dispatched lane: {stats}")
+    t0 = time.perf_counter()
+    checks = check_grch38(run, rng)
+    log(f"phase 8 GRCh38 correctness: {checks} ({time.perf_counter() - t0:.3f} s)")
+    log("phase 9 GRCh38 report:")
+    paths["grch38"] = report("grch38", run, device) | {"checks": checks}
+    paths["grch38"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    run["engine"].release()
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    stats = dict(run["engine"].stats)
-    log(f"phase 6 report: {qps:.1f} queries/s end to end, engine stats {json.dumps(stats)}")
-    split = time_split(run, device)
-    log(f"  time split: {json.dumps(split)}")
-    rows, per_kernel = kernel_report(run, device)
-    verify_batches = stats["batches"]
-    for row in rows:
-        log("  " + json.dumps(row))
+    # Times of window_read and occ_pair come from the chr1 path (slice 1's
+    # numbers stay comparable), backstep's from the GRCh38-shaped path;
+    # launches add up over both paths.
     kernels_line = []
-    for name in ("window_read", "occ_pair"):
-        agg = per_kernel[name]
-        log(f"  {name}: {run['launches'][name]} launches over {verify_batches} verify batches "
-            f"({run['launches'][name] / verify_batches:.2f} per batch); per-batch ms {agg['ms']:.4f}")
+    for name in KERNELS:
+        path = "chr1" if name in paths["chr1"]["per_kernel"] else "grch38"
+        agg = paths[path]["per_kernel"][name]
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": run["launches"][name], "ms": agg["ms"],
+            "launches": sum(p["launches"][name] for p in paths.values()),
             "max_abs_err": max(v["max_abs_err"] for key, v in exact.items() if key.startswith(name)),
-            "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
+            "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": "bytes" if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / INT32_OPS_PER_S else "operations",
-            "library_ms": agg["library_ms"],
+            "library_ms": agg["library_ms"], "times_from_path": path,
+            "launches_by_path": {p: v["launches"][name] for p, v in paths.items()},
         })
+    total_s = time.perf_counter() - t_start
+    log(f"total seconds: {total_s:.3f}")
     record = {
-        "card": card, "seed": args.seed, "build_kernels_s": build_s, "build_index_s": run["build_s"],
-        "ship_s": run["ship_s"], "serve_s": run["serve_s"], "queries": run["queries"],
-        "queries_per_s": qps, "stats": stats, "launches": run["launches"], "exact": exact,
-        "checks": checks, "time_split": split, "sites": rows, "kernels": kernels_line,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+        "card": card, "seed": args.seed, "build_kernels_s": build_s, "exact": exact, "paths": paths,
+        "kernels": kernels_line, "total_s": total_s,
     }
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from awry_tpu_torch import Alphabet, FmBuildArgs, build_from_records
-from awry_tpu_torch.ops import kernels, to_device
+from awry_tpu_torch.ops import kernels, lf_walk, to_device
 
 
 @pytest.fixture
@@ -22,11 +22,11 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _device_index(alphabet, n, seed):
+def _device_index(alphabet, n, seed, mark_ratio=1):
     rng = np.random.default_rng(seed)
     letters = b"ACGT" if alphabet is Alphabet.NUCLEOTIDE else b"ACDEFGHIKLMNPQRSTVWY"
     seq = bytes(rng.choice(np.frombuffer(letters, dtype=np.uint8), size=n))
-    args = FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4, locate_mark_ratio=1)
+    args = FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4, locate_mark_ratio=mark_ratio)
     return to_device(build_from_records([("x", seq)], args), "cpu"), rng
 
 
@@ -58,3 +58,35 @@ def test_occ_pair_matches_plain(card, alphabet):
     assert kernels.occ_pair.launches == n0 + 1
     want = kernels.occ_pair_plain(blocks, pos_a, pos_b, sym, codes, tdev.num_planes)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+def test_backstep_matches_plain(card, alphabet):
+    tdev, rng = _device_index(alphabet, 60_000, 3, mark_ratio=4)
+    args = [t.to(card) for t in (tdev.blocks, tdev.prefix_sums, tdev.codes, tdev.c2i)]
+    n = tdev.bwt_len
+    rows = torch.from_numpy(np.concatenate([[0, n - 1, n + 300, -4], rng.integers(0, n, size=4095)])).to(card)
+    tail = (tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx)
+    n0 = kernels.backstep.launches
+    got = kernels.backstep(args[0], rows, *args[1:], *tail)
+    assert kernels.backstep.launches == n0 + 1
+    want = kernels.backstep_plain(args[0], rows, *args[1:], *tail)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_lf_walk_mark4_matches_cpu(card):
+    """The marked walk on the card (backstep + window_read k=1) equals the
+    CPU walk through the plain versions, row 0 and the last row included."""
+    rng = np.random.default_rng(4)
+    seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=60_000))
+    index = build_from_records([("a", b"N" * 50 + seq[:40_000]), ("b", seq[40_000:] + b"N" * 50)],
+                               FmBuildArgs(lookup_table_kmer_len=4))
+    assert index.resolved_mark_ratio == 4
+    rows = np.concatenate([[0, index.bwt_len - 1], rng.integers(0, index.bwt_len, size=5000)])
+    n0 = kernels.backstep.launches
+    got = lf_walk(to_device(index, card), torch.from_numpy(rows).to(card))
+    assert kernels.backstep.launches == n0 + 4
+    want = lf_walk(to_device(index, "cpu"), torch.from_numpy(rows))
+    assert torch.equal(got.cpu(), want)

@@ -143,14 +143,20 @@ def test_hits_are_in_the_text(served):
 
 def test_device_rules(monkeypatch):
     """The engine runs on the card unless told otherwise: without a CUDA
-    device and without device= it raises; mark ratios above 1 are refused."""
-    seq = random_seq(jx.Alphabet.NUCLEOTIDE, np.random.default_rng(23), 5_000)
+    device and without device= it raises.  The default build (mark ratio 4)
+    serves on device="cpu" and equals the mark-1 build."""
+    rng = np.random.default_rng(23)
+    seq = random_seq(jx.Alphabet.NUCLEOTIDE, rng, 5_000)
     idx = pt.build_from_records([("x", seq)], pt.FmBuildArgs(lookup_table_kmer_len=4, locate_mark_ratio=1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FmQueryEngine(idx)
-    assert FmQueryEngine(idx, device="cpu").device.type == "cpu"
+    mark1 = FmQueryEngine(idx, device="cpu")
+    assert mark1.device.type == "cpu"
     default_mark = pt.build_from_records([("x", seq)], pt.FmBuildArgs(lookup_table_kmer_len=4))
     assert default_mark.resolved_mark_ratio == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        FmQueryEngine(default_mark, device="cpu")
+    mark4 = FmQueryEngine(default_mark, device="cpu")
+    assert mark4.device_index.mark_ratio == 4
+    queries = [seq[s : s + 12] for s in rng.integers(0, 4_900, size=200)] + [b"ACGT", b"AC"]
+    for x, y in zip(mark4.count_locate_arrays(queries), mark1.count_locate_arrays(queries)):
+        np.testing.assert_array_equal(x, y)

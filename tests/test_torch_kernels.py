@@ -11,21 +11,23 @@ import pytest
 import torch
 
 import awry_tpu as jx
+import awry_tpu.host_engine as he
 import awry_tpu.ops.rank as jrank
+import awry_tpu.ops.sweep as jsweep
 import awry_tpu_torch as pt
 from awry_tpu.ops import to_device as jax_to_device
-from awry_tpu.ops.sweep import occurrence_sweep_pair, seeded_pair_chain, window_sweep
+from awry_tpu.ops.sweep import backstep_mark_sweep, occurrence_sweep_pair, seeded_pair_chain, window_sweep
 from awry_tpu_torch.ops import kernels, rank, to_device
 
 from .conftest import random_seq
 
 
-def _indexes(alphabet: str, n: int, k: int, seed: int):
+def _indexes(alphabet: str, n: int, k: int, seed: int, mark_ratio: int = 1):
     """The same records built by both packages, shipped to both devices."""
     rng = np.random.default_rng(seed)
     ja, ta = jx.Alphabet[alphabet], pt.Alphabet[alphabet]
     records = [("r0", random_seq(ja, rng, n)), ("r1", random_seq(ja, rng, n // 7))]
-    args = dict(lookup_table_kmer_len=k, locate_mark_ratio=1)
+    args = dict(lookup_table_kmer_len=k, locate_mark_ratio=mark_ratio)
     jidx = jx.build_from_records(records, jx.FmBuildArgs(alphabet=ja, **args))
     tidx = pt.build_from_records(records, pt.FmBuildArgs(alphabet=ta, **args))
     return jidx, jax_to_device(jidx, build_sweep=True), to_device(tidx, "cpu"), rng
@@ -158,13 +160,106 @@ def test_post_seed_chain_matches_seeded_pair_chain():
     assert 0 < live.sum() < B  # both empty and non-empty lanes were exercised
 
 
+def _backstep(tdev, rows):
+    return kernels.backstep(
+        tdev.blocks, _t(rows), tdev.prefix_sums, tdev.codes, tdev.c2i, tdev.num_planes,
+        tdev.mark_offset, tdev.alphabet.ambiguity_idx,
+    )
+
+
+@pytest.mark.parametrize("alphabet", ["NUCLEOTIDE", "AMINO"])
+def test_backstep_plain_matches_sweep_and_host(alphabet):
+    """backstep at mark ratio 4 equals backstep_mark_sweep (interpret mode)
+    and the host engine's LF step, with the decoded mark bit and mark rank
+    equal to the JAX plain-gather ones; rows include the table edges, a
+    block edge and the two-band layout of tests/test_sweep.py (an LF walk's
+    post-step shape)."""
+    import jax.numpy as jnp
+
+    from awry_tpu.ops.locate import _mark_bit_t, _mark_rank_t
+
+    jidx, jdev, tdev, rng = _indexes(alphabet, 60_000, 4, seed=15, mark_ratio=4)
+    n = jidx.bwt_len
+    rows = np.concatenate([
+        [0, n - 1, 255, 256],
+        rng.integers(0, 2_000, size=300),
+        rng.integers(n - 2_000, n, size=300),
+        rng.integers(0, n, size=3_400),
+    ])
+    stepped, packed = _backstep(tdev, rows)
+    stepped, packed = stepped.numpy(), packed.numpy().view(np.uint32)
+
+    jrows = jnp.asarray(rows, dtype=jnp.uint32)
+    j_st, j_mark, cov = backstep_mark_sweep(jdev, jrows, interpret=True)
+    assert np.asarray(cov).all()
+    np.testing.assert_array_equal(stepped, np.asarray(j_st).astype(np.int64))
+    np.testing.assert_array_equal(packed, np.asarray(j_mark))
+    np.testing.assert_array_equal(stepped, he.backstep(jidx, rows))
+    rows_t = jrank.fetch_rows_t(jdev, jrows)
+    np.testing.assert_array_equal(packed & 1, np.asarray(_mark_bit_t(jdev, rows_t, jrows)))
+    np.testing.assert_array_equal(packed >> 1, np.asarray(_mark_rank_t(jdev, rows_t, jrows)))
+    assert (packed & 1).any() and not (packed & 1).all()
+
+    t_rows = _t(rows)
+    np.testing.assert_array_equal(rank.symbol_at(tdev, t_rows).numpy(), np.asarray(jrank.symbol_at(jdev, jrows)))
+    np.testing.assert_array_equal(rank.backstep(tdev, t_rows).numpy(), stepped)
+    _, bit, mrank = rank.backstep_mark(tdev, t_rows)
+    np.testing.assert_array_equal(bit.numpy(), (packed & 1) == 1)
+    np.testing.assert_array_equal(mrank.numpy(), packed >> 1)
+
+
+def test_blocked_twins_match_plain(monkeypatch):
+    """The blocked-window twins (_text_kernel, _occ_pair_kernel,
+    _backstep_kernel: the reference with USE_ANCHORED off) compute the same
+    functions as window_read, occ_pair and backstep."""
+    import jax
+    import jax.numpy as jnp
+
+    from awry_tpu.ops.sweep import text_window_sweep
+
+    jidx, jdev, tdev, rng = _indexes("NUCLEOTIDE", 60_000, 4, seed=16, mark_ratio=4)
+    n = jidx.bwt_len
+    r = 4000
+    nw = tdev.text_packed.shape[0]
+    wbase = np.concatenate([rng.integers(3, nw, size=r - 3), [nw + 50, 2, nw - 1]])
+    pos_a = rng.integers(0, n, size=r)
+    pos_b = np.minimum(pos_a + rng.integers(0, 40, size=r), n - 1)
+    sym = rng.integers(0, jidx.alphabet.cardinality, size=r).astype(np.int32)
+    rows = np.concatenate([[0, n - 1], rng.integers(0, n, size=r - 2)])
+    u32 = lambda a: jnp.asarray(a, dtype=jnp.uint32)  # noqa: E731
+
+    monkeypatch.setattr(jsweep, "USE_ANCHORED", False)
+    jax.clear_caches()  # the flag is read at trace time
+    try:
+        before = jsweep.TRACE_COUNTS["window_sweep_anchored"]
+        j_text = np.asarray(text_window_sweep(jdev, u32(wbase), 3, interpret=True))
+        assert jsweep.TRACE_COUNTS["window_sweep_anchored"] == before
+        j_a, j_b, cov_p = occurrence_sweep_pair(jdev, u32(pos_a), u32(pos_b), jnp.asarray(sym), interpret=True)
+        j_st, j_mark, cov_b = backstep_mark_sweep(jdev, u32(rows), interpret=True)
+    finally:
+        jax.clear_caches()
+    assert np.asarray(cov_p).all() and np.asarray(cov_b).all()
+
+    np.testing.assert_array_equal(
+        kernels.window_read(tdev.text_packed, _t(wbase), 3).numpy().view(np.uint32), j_text
+    )
+    occ_a, occ_b = kernels.occ_pair(tdev.blocks, _t(pos_a), _t(pos_b), _t(sym), tdev.codes, tdev.num_planes)
+    np.testing.assert_array_equal(occ_a.numpy().view(np.uint32), np.asarray(j_a))
+    np.testing.assert_array_equal(occ_b.numpy().view(np.uint32), np.asarray(j_b))
+    stepped, packed = _backstep(tdev, rows)
+    np.testing.assert_array_equal(stepped.numpy(), np.asarray(j_st).astype(np.int64))
+    np.testing.assert_array_equal(packed.numpy().view(np.uint32), np.asarray(j_mark))
+
+
 def test_wrappers_route_cpu_tensors_to_plain():
     """CPU tensors take the plain version and count no launch; tensors on
     two different devices are refused."""
     flat = torch.arange(100, dtype=torch.int32)
-    before = (kernels.window_read.launches, kernels.occ_pair.launches)
+    counts = lambda: (kernels.window_read.launches, kernels.occ_pair.launches, kernels.backstep.launches)  # noqa: E731
+    before = counts()
     out = kernels.window_read(flat, torch.tensor([5, 50], dtype=torch.int64), 3)
     assert out.tolist() == [[5, 4, 3], [50, 49, 48]]
-    assert (kernels.window_read.launches, kernels.occ_pair.launches) == before
+    assert kernels.window_read(flat, torch.tensor([0, 99, 500], dtype=torch.int64), 1).tolist() == [[0], [99], [99]]
+    assert counts() == before
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         kernels.window_read(flat, torch.zeros(2, dtype=torch.int64, device="meta"), 2)
