@@ -1,9 +1,10 @@
 """Index construction: text -> suffix array -> FM-index arrays (host).
 
-The port's copy of ``awry_tpu/build/builder.py`` with the host (counting)
-k-mer table build.  Every component comes from whole-array NumPy passes:
-bit-plane packing via np.packbits, milestones via per-block sums + an
-exclusive cumsum, the k-mer table by counting (build/kmer_count.py).
+The port's copy of ``awry_tpu/build/builder.py``.  Every component comes
+from whole-array NumPy passes: bit-plane packing via np.packbits, milestones
+via per-block sums + an exclusive cumsum, the k-mer table by counting
+(build/kmer_count.py), or, with ``build_kmer_table_on_device``, breadth-wise
+on a device through the ``occ`` kernel (ops/kmer.py).
 """
 
 from __future__ import annotations
@@ -72,8 +73,12 @@ def compute_milestones(bwt_syms: np.ndarray, alphabet: Alphabet) -> tuple[np.nda
     return milestones, prefix_sums
 
 
-def build_from_sequence_data(seq_data: SequenceData, args: FmBuildArgs) -> FmIndexData:
-    """Assemble the full FM-index from canonical concatenated text."""
+def build_from_sequence_data(seq_data: SequenceData, args: FmBuildArgs, *, device=None) -> FmIndexData:
+    """Assemble the full FM-index from canonical concatenated text.
+
+    ``device`` is where ``args.build_kmer_table_on_device`` builds the k-mer
+    table: None means the card (cuda:0; raises without one), "cpu" runs the
+    kernels' plain versions."""
     alphabet = args.alphabet
     t_phase = time.perf_counter()
 
@@ -137,7 +142,7 @@ def build_from_sequence_data(seq_data: SequenceData, args: FmBuildArgs) -> FmInd
         sampled_sa=sampled_sa,
         sa_ratio=sa_ratio,
         bwt_len=int(bwt_len),
-        kmer_table=populate_kmer_table_counting(text_syms, alphabet, kmer_len),
+        kmer_table=np.zeros((1, 2), dtype=np.uint32),  # placeholder until the table below
         kmer_len=kmer_len,
         seq_starts=seq_data.start_positions.astype(np.int64),
         headers=list(seq_data.headers),
@@ -147,19 +152,29 @@ def build_from_sequence_data(seq_data: SequenceData, args: FmBuildArgs) -> FmInd
         mark_ratio=mark_ratio,
         text_packed=text_packed,
     )
+    if args.build_kmer_table_on_device:
+        from ..ops.device_index import to_device
+        from ..ops.kmer import populate_kmer_table_device
+
+        # minimal: the build only ranks, so only the rank tables ship.
+        table = populate_kmer_table_device(to_device(index, device, minimal=True), kmer_len)
+        # The dtype of the counting table, so that both builds give one index.
+        index.kmer_table = table.astype(np.uint32) if bwt_len <= (1 << 32) and kmer_len else table
+    else:
+        index.kmer_table = populate_kmer_table_counting(text_syms, alphabet, kmer_len)
     phase("kmer table")
     index.validate()
     return index
 
 
-def build_index(args: FmBuildArgs) -> FmIndexData:
+def build_index(args: FmBuildArgs, *, device=None) -> FmIndexData:
     """Read the input file named by ``args`` and build the index."""
     if args.input_file_src is None:
         raise ValueError("input_file_src is required")
     seq_data = read_sequence_file(args.input_file_src, args.alphabet)
-    return build_from_sequence_data(seq_data, args)
+    return build_from_sequence_data(seq_data, args, device=device)
 
 
-def build_from_records(records: list[tuple[str, bytes]], args: FmBuildArgs) -> FmIndexData:
+def build_from_records(records: list[tuple[str, bytes]], args: FmBuildArgs, *, device=None) -> FmIndexData:
     """Build directly from in-memory (header, sequence) records."""
-    return build_from_sequence_data(concat_records(records, args.alphabet), args)
+    return build_from_sequence_data(concat_records(records, args.alphabet), args, device=device)

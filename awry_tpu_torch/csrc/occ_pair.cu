@@ -1,10 +1,14 @@
 // occ_pair: (Occ(pos_a[i], sym[i]), Occ(pos_b[i], sym[i])) over fused block
-// rows, where Occ(p, c) = count of symbol c in BWT[0..=p].
+// rows, where Occ(p, c) = count of symbol c in BWT[0..=p]; occ: Occ(pos[i],
+// sym[i]) alone.
 //
-// Replaces awry_tpu/ops/sweep.py:_occ_pair_pay_kernel_anchored (the
+// occ_pair replaces awry_tpu/ops/sweep.py:_occ_pair_pay_kernel_anchored (the
 // post-seed LF steps of seeded_pair_chain) and its twin
 // _occ_pair_kernel_anchored (the same pair with the symbol as an operand:
-// unseeded lanes and the classic full-depth re-dispatch).
+// unseeded lanes and the classic full-depth re-dispatch).  occ replaces
+// _occ_kernel_anchored and its blocked twin _occ_kernel (occurrence_sweep:
+// one rank per request), which the device k-mer build runs: each level ranks
+// the concatenation [starts - 1, ends] of its range updates in one batch.
 //
 // A fused row holds V 256-bit occurrence planes (V*8 words; V = 3 for
 // nucleotide, 5 for amino) followed by the block's per-symbol milestones
@@ -12,19 +16,23 @@
 // popcount of the AND over planes of (plane ^ polarity(sym's code bit v)),
 // masked to the bits [0..=p & 255] of the block (inclusive).
 //
-// Bound: device-memory traffic of scattered reads.  Each request reads two
-// random rows of a table far larger than L2 (156 MB of nucleotide rows at
-// chr1 scale): per row V 32 B plane sectors and one 32 B milestone sector,
-// plus 28 B of request/result I/O; the popcounts are a few dozen integer
-// operations.
+// Bound: device-memory traffic of scattered reads.  On the serving path each
+// request reads two random rows of a table far larger than L2 (156 MB of
+// nucleotide rows at chr1 scale): per row V 32 B plane sectors and one 32 B
+// milestone sector, plus 28 B of request/result I/O; the popcounts are a few
+// dozen integer operations.  The k-mer build's occ runs on whatever index is
+// being built: at chr20 scale (64 Mbp) its 40 MB of rows fit the 50 MB L2, so
+// the 16 B of request/result I/O per rank stream from device memory while
+// the row sectors mostly hit L2.
 //
 // Design: one thread per request.  Each plane is loaded as two 16 B uint4
 // words, so a row's plane bytes arrive in V sector-sized loads, and the
 // milestone is one 4 B load.  No sort, no anchors, no coverage fixup and no
 // shared-memory window: those streamed HBM windows through the TPU's VMEM;
 // on this card a direct gather with many independent requests in flight is
-// the simple first kernel.  pos is clamped into the table (pos_a = start-1
-// is -1 only on lanes the caller masks).
+// the simple first kernel.  Positions are clamped into the table (pos_a =
+// start-1 is -1 only on lanes the caller masks) and symbols into the
+// alphabet.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +91,18 @@ __global__ void occ_pair_kernel(const uint32_t* __restrict__ blocks, int64_t nbi
   occ_b[i] = occ_one<V>(blocks, nbits, row_words, pos_b[i], s, code);
 }
 
+template <int V>
+__global__ void occ_kernel(const uint32_t* __restrict__ blocks, int64_t nbits, int row_words,
+                           int card, const int32_t* __restrict__ codes,
+                           const int64_t* __restrict__ pos, const int32_t* __restrict__ sym,
+                           int64_t n, uint32_t* __restrict__ occ) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int s = sym[i];
+  s = s < 0 ? 0 : (s >= card ? card - 1 : s);
+  occ[i] = occ_one<V>(blocks, nbits, row_words, pos[i], s, (uint32_t)__ldg(codes + s));
+}
+
 }  // namespace
 
 // Launches on `stream` (the caller's current PyTorch stream) and returns
@@ -108,6 +128,31 @@ extern "C" int awry_occ_pair(int device, const void* blocks, int64_t num_blocks,
           (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
           (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
           (uint32_t*)occ_a, (uint32_t*)occ_b);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int awry_occ(int device, const void* blocks, int64_t num_blocks, int row_words,
+                        int nplanes, int card, const void* codes, const void* pos,
+                        const void* sym, int64_t n, void* occ, void* stream) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+  if (n > 0) {
+    const int threads = 256;
+    const unsigned grid = (unsigned)((n + threads - 1) / threads);
+    const int64_t nbits = num_blocks * 256;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (nplanes == 3) {
+      occ_kernel<3><<<grid, threads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
+          (const int64_t*)pos, (const int32_t*)sym, n, (uint32_t*)occ);
+    } else if (nplanes == 5) {
+      occ_kernel<5><<<grid, threads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
+          (const int64_t*)pos, (const int32_t*)sym, n, (uint32_t*)occ);
     } else {
       return (int)cudaErrorInvalidValue;
     }

@@ -40,6 +40,9 @@ class FmBuildArgs:
     # sa_ratio).  Ratio 1 stores every row's SA value (locate is one read);
     # ratio r stores 1/r of them and locate walks at most r - 1 LF steps.
     locate_mark_ratio: int | None = None
+    # Build the k-mer table breadth-wise on a device (ops/kmer.py) instead
+    # of by counting on the host; the builders' ``device=`` names it.
+    build_kmer_table_on_device: bool = False
 
     def resolved_sa_ratio(self) -> int:
         return self.suffix_array_compression_ratio or 8

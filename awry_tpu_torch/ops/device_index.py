@@ -14,7 +14,12 @@
   (ceil(bwt_len / mark_ratio) of them; every row at mark ratio 1);
 * ``seq_starts`` - record starts, for localization;
 * ``codes`` / ``c2i`` / ``dense`` - the symbol -> occurrence code, code ->
-  symbol and symbol -> dense k-mer digit tables.
+  symbol and symbol -> dense k-mer digit tables;
+* ``vw_flat`` - slot-capable indexes only (slot_regime_capable): the slim
+  fat rows of the slot-verify regime, flat (build_verify_windows).
+
+``to_device(index, device, minimal=True)`` ships only what a rank reads
+(fused rows, prefix sums, codes): the device k-mer build (ops/kmer.py).
 
 Tables are int32 tensors holding the uint32 bit patterns (numpy views, not
 value casts); prefix sums and record starts are int64.
@@ -29,8 +34,20 @@ import torch
 
 from ..alphabet import Alphabet, code_to_index_table, index_to_code_table, index_to_dense_table
 from ..index import FmIndexData
+from .kernels import as_int32_bits
 
 TEXT_PAD_WORDS = 64  # zero words prepended to the device text (ops/verify.py)
+
+# Slot-verify regime (ops/verify.py count_locate_slots_t): when the k-mer
+# seed alone narrows the expected range width to ~1, every lane's candidate
+# rows are verified straight off slim fat rows, with no post-seed rank step.
+# Capable when every row is marked (the fat row carries its SA value), the
+# expected seed width bwt_len / base^k is small enough that few lanes
+# exceed WIDE_CAP candidates, and the 16 B/row fat table stays affordable.
+SLOT_REGIME_MAX_ROWS = 1 << 28
+SLOT_WIDTH_MAX = 1.6
+SLOT_ROW_WORDS = 4  # slim fat row: 3 window words + the row's SA value
+_BUILD_CHUNK = 1 << 22  # fat rows assembled per pass (bounds the temporaries)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -86,6 +103,13 @@ class FmDeviceIndex:
     bwt_len: int
     kmer_len: int
     mark_ratio: int  # the LF walk takes at most mark_ratio - 1 steps
+    # Slot regime: int32 [(bwt_len + pad) * vw_row_words] fat rows aligned
+    # at the seed step verify_windows_s = kmer_len, with verify_windows_w
+    # window words each; None when the index is served by the switch step.
+    vw_flat: torch.Tensor | None = None
+    verify_windows_s: int = 0
+    verify_windows_w: int = 0
+    vw_row_words: int = SLOT_ROW_WORDS
 
     @property
     def device(self) -> torch.device:
@@ -106,8 +130,59 @@ def _u32_bits(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(arr, dtype=np.uint32)).view(np.int32)
 
 
-def to_device(index: FmIndexData, device=None) -> FmDeviceIndex:
-    """Ship a host index to ``device`` (None: the card, see resolve_device)."""
+def slot_regime_capable(index: FmIndexData) -> bool:
+    """The index can be served by the slot-verify regime (see SLOT_WIDTH_MAX)."""
+    base = index.alphabet.num_encoding_symbols
+    return (
+        index.resolved_mark_ratio == 1
+        and index.has_marks
+        and index.text_packed is not None
+        and index.kmer_len >= 2
+        and index.bwt_len <= SLOT_REGIME_MAX_ROWS
+        and index.bwt_len <= SLOT_WIDTH_MAX * base**index.kmer_len
+    )
+
+
+def build_verify_windows(text_packed: torch.Tensor, sa: torch.Tensor, bits: int,
+                         row_words: int = SLOT_ROW_WORDS) -> torch.Tensor:
+    """The slot regime's fat rows, flat: int32[(rows + pad) * row_words] on
+    the tensors' device, built by plain tensor ops.
+
+    Row r, with SA value p = sa[r], holds in word i < w = row_words - 1 the
+    symbols at text positions p - 1 - spw*i - t at bits bits*t (t < spw =
+    32 // bits; positions below 0 read the zero padding), and p in word w:
+    the symbol at query-end distance d >= s sits at a fixed bit of word
+    (d - s) // spw when the search stopped at step s on this row.  A zero
+    row pads the row count so that the flat length is a multiple of 8 words.
+
+    text_packed: int32 packed text with TEXT_PAD_WORDS zero words in front
+    (as shipped); sa: int32 bit patterns, the SA value of every BWT row
+    (text_sampled_sa at mark ratio 1)."""
+    spw = 32 // bits
+    w = row_words - 1
+    device = text_packed.device
+    shifts = torch.arange(0, 32, bits, device=device)
+    # Symbols of the padded text: text position x sits at x + TEXT_PAD_WORDS * spw.
+    syms = ((text_packed[:, None] >> shifts.to(torch.int32)) & ((1 << bits) - 1)).reshape(-1).to(torch.uint8)
+    back = torch.arange(spw * w, device=device)  # position p - 1 - j in column j
+    n = sa.shape[0]
+    pad = 1 if (n * row_words) % 8 else 0
+    fat = torch.zeros((n + pad, row_words), dtype=torch.int32, device=device)
+    for lo in range(0, n, _BUILD_CHUNK):
+        p = sa[lo : lo + _BUILD_CHUNK].to(torch.int64) & 0xFFFFFFFF
+        g = syms[(p + TEXT_PAD_WORDS * spw - 1)[:, None] - back].to(torch.int64)
+        words = (g.reshape(-1, w, spw) << shifts).sum(dim=2)  # disjoint bits: the sum is the OR
+        fat[lo : lo + p.shape[0], :w] = as_int32_bits(words)
+        fat[lo : lo + p.shape[0], w] = sa[lo : lo + _BUILD_CHUNK]
+    return fat.reshape(-1)
+
+
+def to_device(index: FmIndexData, device=None, *, minimal: bool = False, slots: bool = True) -> FmDeviceIndex:
+    """Ship a host index to ``device`` (None: the card, see resolve_device).
+
+    ``minimal``: ship only the fused rows, prefix sums and codes (the other
+    tables are one-word placeholders and kmer_len is 0).  ``slots``: ship
+    the slot regime's fat rows when slot_regime_capable holds (False: never)."""
     device = resolve_device(device)
     if index.bwt_len >= 2**32:
         raise NotImplementedError(
@@ -123,23 +198,43 @@ def to_device(index: FmIndexData, device=None) -> FmDeviceIndex:
     def put(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(device)
 
-    text = np.concatenate(
-        [np.zeros(TEXT_PAD_WORDS, dtype=np.uint32), np.asarray(index.text_packed, dtype=np.uint32)]
-    )
-    return FmDeviceIndex(
+    rank_tables = dict(
         blocks=put(build_fused_blocks(index).view(np.int32)),
         prefix_sums=put(index.prefix_sums.astype(np.int64)),
-        kmer_flat=put(_u32_bits(index.kmer_table).reshape(-1)),
-        text_packed=put(text.view(np.int32)),
-        text_sampled_sa=put(_u32_bits(index.text_sampled_sa)),
-        seq_starts=put(index.seq_starts.astype(np.int64)),
         codes=put(index_to_code_table(index.alphabet).astype(np.int32)),
         c2i=put(code_to_index_table(index.alphabet).astype(np.int32)),
         dense=put(index_to_dense_table(index.alphabet).astype(np.int64)),
         alphabet=index.alphabet,
         bwt_len=int(index.bwt_len),
-        kmer_len=int(index.kmer_len),
         mark_ratio=int(index.resolved_mark_ratio),
+    )
+    if minimal:
+        placeholder = put(np.zeros(1, dtype=np.int32))
+        return FmDeviceIndex(
+            **rank_tables, kmer_flat=placeholder, text_packed=placeholder, text_sampled_sa=placeholder,
+            seq_starts=put(index.seq_starts.astype(np.int64)), kmer_len=0,
+        )
+    text = np.concatenate(
+        [np.zeros(TEXT_PAD_WORDS, dtype=np.uint32), np.asarray(index.text_packed, dtype=np.uint32)]
+    )
+    text_packed = put(text.view(np.int32))
+    sa = put(_u32_bits(index.text_sampled_sa))
+    slot_rows = {}
+    if slots and slot_regime_capable(index):
+        bits = 4 if index.alphabet.cardinality <= 16 else 8
+        slot_rows = dict(
+            vw_flat=build_verify_windows(text_packed, sa, bits),
+            verify_windows_s=int(index.kmer_len),
+            verify_windows_w=SLOT_ROW_WORDS - 1,
+        )
+    return FmDeviceIndex(
+        **rank_tables,
+        kmer_flat=put(_u32_bits(index.kmer_table).reshape(-1)),
+        text_packed=text_packed,
+        text_sampled_sa=sa,
+        seq_starts=put(index.seq_starts.astype(np.int64)),
+        kmer_len=int(index.kmer_len),
+        **slot_rows,
     )
 
 

@@ -3,9 +3,11 @@
 Every call is a batch: queries are encoded and padded on the host (bucketed
 shapes), packed into the densest wire the batch admits (2-bit crumbs for
 pure A/C/G/T batches, 4-bit nibbles otherwise, raw bytes for amino),
-served by the seed-walk-verify path (ops/verify.py) when the padded length
-fits its text window, else by the classic full-depth path
-(ops/locate.py), and assembled on the host with vectorized NumPy.
+served by the verify path (ops/verify.py) when the padded length fits its
+window, else by the classic full-depth path (ops/locate.py), and assembled
+on the host with vectorized NumPy.  The verify path is the slot regime
+(count_locate_slots_t) on slot-capable indexes, else the switch step
+(count_locate_verify_t).
 
 The engine runs on the card: ``device=None`` means ``cuda:0`` and raises
 when no CUDA device exists; ``device="cpu"`` runs the kernels' plain
@@ -22,7 +24,7 @@ from ..index import FmIndexData
 from .device_index import TEXT_PAD_WORDS, resolve_device, to_device
 from .locate import count_locate_capped_t, lf_walk
 from .search import count_batch_kernel_t, search_ranges_t, unpack_crumbs_t, unpack_nibbles_t
-from .verify import count_locate_verify_t, switch_step, unpack_verify_bundle, wide_groups
+from .verify import count_locate_slots_t, count_locate_verify_t, switch_step, unpack_verify_bundle, wide_groups
 
 # Rows per over-cap locate slab (bounds the device expansion's memory).
 _OVERCAP_WALK_SLAB = 8 * 1024 * 1024
@@ -79,9 +81,11 @@ def encode_query_batch(alphabet, queries, *, min_batch: int = 16, min_len: int =
 class FmQueryEngine:
     """Batch count/locate engine over an FM-index shipped to one device."""
 
-    def __init__(self, index: FmIndexData, *, device=None):
+    def __init__(self, index: FmIndexData, *, device=None, slots: bool = True):
+        """``slots``: serve through the slot regime when the index is
+        slot-capable (False: the switch-step path on any index)."""
         self.device = resolve_device(device)
-        self.device_index = dev = to_device(index, self.device)
+        self.device_index = dev = to_device(index, self.device, slots=slots)
         # Serving-shape counters, updated per verify batch.
         self.stats = {
             "batches": 0,
@@ -98,9 +102,19 @@ class FmQueryEngine:
             self._crumb_inv = torch.from_numpy(np.flatnonzero(dense_lut >= 0).astype(np.int32)).to(self.device)
         else:
             self._crumb_lut = self._crumb_inv = None
-        self._verify_s = switch_step(dev)
-        # Longest padded query the backward text-window read covers.
-        self._verify_max_len = TEXT_PAD_WORDS * (8 if self._wire_packed else 4)
+        spw = 8 if self._wire_packed else 4
+        self._verify_slots = dev.vw_flat is not None
+        if self._verify_slots:
+            # The search stops at the seed; the compare reads only the fat
+            # window words, so longer batches take the classic path.
+            self._verify_s = dev.kmer_len
+            self._verify_kernel = count_locate_slots_t
+            self._verify_max_len = dev.kmer_len + spw * dev.verify_windows_w
+        else:
+            self._verify_s = switch_step(dev)
+            self._verify_kernel = count_locate_verify_t
+            # Longest padded query the backward text-window read covers.
+            self._verify_max_len = TEXT_PAD_WORDS * spw
         self._seq_starts_host = np.asarray(index.seq_starts, dtype=np.int64)
 
     # -- host-side encoding ----------------------------------------------------
@@ -223,9 +237,7 @@ class FmQueryEngine:
             n = len(batch)
         qt, ql, flags = self._upload(wire, qlens)
         if self._wire_len(wire) <= self._verify_max_len:
-            bundle, starts, _ = count_locate_verify_t(
-                self.device_index, qt, ql, self._verify_s, **flags
-            )
+            bundle, starts, _ = self._verify_kernel(self.device_index, qt, ql, self._verify_s, **flags)
             return ("verify", n, wire, qlens, *self._to_host(bundle), starts.shape[0])
         counts, text_pos, starts, _ = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
         return ("classic", n, wire, qlens, *self._to_host(counts, text_pos, starts), None)

@@ -1,8 +1,8 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, the nvcc
 build and the ctypes binding.
 
-Three kernels carry the seed-walk-verify path (sources under ``csrc/``,
-each with a note on the TPU kernel it replaces, its bound and its design):
+Four kernels (sources under ``csrc/``, each with a note on the TPU kernel
+it replaces, its bound and its design):
 
 * ``window_read(flat, wbase, k)`` - ``words[i, j] = flat[clamp(wbase[i],
   k-1, len-1) - j]``: the k-mer seed pair, the SA reads (mark=1: the row's
@@ -10,6 +10,8 @@ each with a note on the TPU kernel it replaces, its bound and its design):
   verify text window.
 * ``occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes)`` - both endpoint
   ranks of an LF range update from the fused block rows.
+* ``occ(blocks, pos, sym, codes, nplanes)`` - one rank per request (the
+  device k-mer build ranks every range update's two endpoints as one batch).
 * ``backstep(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset,
   ambiguity_idx)`` - one marked-walk visit per row: the LF-stepped row and
   the packed (mark_rank << 1) | mark_bit.
@@ -120,6 +122,8 @@ def _lib():
             lib.awry_window_read.argtypes = [i32, p, i64, p, i64, i32, p, p]
             lib.awry_occ_pair.restype = i32
             lib.awry_occ_pair.argtypes = [i32, p, i64, i32, i32, i32, p, p, p, p, i64, p, p, p]
+            lib.awry_occ.restype = i32
+            lib.awry_occ.argtypes = [i32, p, i64, i32, i32, i32, p, p, p, i64, p, p]
             lib.awry_backstep.restype = i32
             lib.awry_backstep.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, p, i64, p, p, p]
             _lib_handle = lib
@@ -143,6 +147,21 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
             f"{name}: expected a contiguous {ndim}-d {dtype} tensor, got "
             f"{t.dtype} shape {tuple(t.shape)} contiguous={t.is_contiguous()}"
         )
+
+
+def _check_rank_args(kernel: str, blocks, pos, sym, codes, nplanes: int) -> None:
+    """The checks occ_pair and occ share: dtypes, one request length, and a
+    fused row layout the kernel's uint4 plane loads can read."""
+    _check("blocks", blocks, torch.int32, 2)
+    for name, t, dt in (("pos", pos, torch.int64), ("sym", sym, torch.int32), ("codes", codes, torch.int32)):
+        _check(name, t, dt, 1)
+    if sym.shape[0] != pos.shape[0]:
+        raise ValueError(f"{kernel}: positions and sym must have one length")
+    row_words, card = blocks.shape[1], codes.shape[0]
+    if nplanes not in (3, 5) or row_words % 4 or row_words < nplanes * 8 + card:
+        raise ValueError(f"{kernel}: bad row layout (row_words={row_words}, nplanes={nplanes}, card={card})")
+    if blocks.data_ptr() % 16:
+        raise ValueError(f"{kernel}: blocks must be 16-byte aligned (uint4 loads)")
 
 
 def _launch_check(rc: int, kernel: str) -> None:
@@ -270,19 +289,12 @@ def occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes: int):
     3 (nucleotide) or 5 (amino)."""
     if _on_cpu(blocks, pos_a, pos_b, sym, codes):
         return occ_pair_plain(blocks, pos_a, pos_b, sym, codes, nplanes)
-    _check("blocks", blocks, torch.int32, 2)
-    for name, t, dt in (("pos_a", pos_a, torch.int64), ("pos_b", pos_b, torch.int64),
-                        ("sym", sym, torch.int32), ("codes", codes, torch.int32)):
-        _check(name, t, dt, 1)
+    _check("pos_a", pos_a, torch.int64, 1)
+    _check_rank_args("occ_pair", blocks, pos_b, sym, codes, nplanes)
     r = pos_a.shape[0]
-    if pos_b.shape[0] != r or sym.shape[0] != r:
+    if pos_b.shape[0] != r:
         raise ValueError("occ_pair: pos_a, pos_b and sym must have one length")
-    row_words = blocks.shape[1]
-    card = codes.shape[0]
-    if nplanes not in (3, 5) or row_words % 4 or row_words < nplanes * 8 + card:
-        raise ValueError(f"occ_pair: bad row layout (row_words={row_words}, nplanes={nplanes}, card={card})")
-    if blocks.data_ptr() % 16:
-        raise ValueError("occ_pair: blocks must be 16-byte aligned (uint4 loads)")
+    row_words, card = blocks.shape[1], codes.shape[0]
     occ_a = torch.empty(r, dtype=torch.int32, device=blocks.device)
     occ_b = torch.empty(r, dtype=torch.int32, device=blocks.device)
     if r:
@@ -297,6 +309,40 @@ def occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes: int):
 
 
 occ_pair.launches = 0
+
+
+# -- occ -----------------------------------------------------------------------
+
+
+def occ_plain(blocks, pos, sym, codes, nplanes: int) -> torch.Tensor:
+    """Plain version of occ (gather + SWAR popcount)."""
+    return as_int32_bits(_occ_plain(blocks, pos, sym.clamp(0, codes.shape[0] - 1), codes, nplanes))
+
+
+def occ(blocks, pos, sym, codes, nplanes: int) -> torch.Tensor:
+    """int32[R]: Occ(pos, sym) as uint32 bit patterns.
+
+    blocks: int32[num_blocks, row_words] fused rows; pos: int64[R] (clamped
+    into the table); sym: int32[R] symbol indices (clamped to the alphabet);
+    codes: int32[cardinality] symbol -> occurrence code; nplanes: 3
+    (nucleotide) or 5 (amino)."""
+    if _on_cpu(blocks, pos, sym, codes):
+        return occ_plain(blocks, pos, sym, codes, nplanes)
+    _check_rank_args("occ", blocks, pos, sym, codes, nplanes)
+    r = pos.shape[0]
+    out = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    if r:
+        rc = _lib().awry_occ(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
+            codes.shape[0], codes.data_ptr(), pos.data_ptr(), sym.data_ptr(), r, out.data_ptr(),
+            _stream(blocks.device),
+        )
+        _launch_check(rc, "occ")
+        occ.launches += 1
+    return out
+
+
+occ.launches = 0
 
 
 # -- backstep ------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Occ(pos, sym) = count of sym in BWT[0..=pos]: the block's milestone for
 sym plus an inclusive masked popcount of the AND over XOR-polarity planes.
 The LF range update ranks both endpoints through the ``occ_pair`` kernel;
-the LF step of single rows (the marked walk's visit) goes through the
+a batch of single ranks (the device k-mer build) goes through ``occ``; the
+LF step of single rows (the marked walk's visit) goes through the
 ``backstep`` kernel.  Positions, ranges and counts are int64; symbols int32.
 """
 
@@ -22,6 +23,13 @@ def occurrence_plain(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -
     whatever device the index lives on."""
     s = sym.clamp(0, dev.alphabet.cardinality - 1)
     return kernels._occ_plain(dev.blocks, pos, s, dev.codes, dev.num_planes)
+
+
+def occurrence(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+    """Occ(pos, sym) as int64 from one ``occ`` launch (its plain version for
+    CPU tensors).  Every lane is exact: the port has no coverage flags."""
+    occ = kernels.occ(dev.blocks, pos, sym.to(torch.int32), dev.codes, dev.num_planes)
+    return occ.to(torch.int64) & _FULL
 
 
 def prefix_sum_select(dev: FmDeviceIndex, sym: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ free for verified hits.  Results are exact:
 * wider, or past the group budget: flagged ``redis`` for the caller's
   classic full-depth re-dispatch.
 
+Slot-capable indexes (device_index.slot_regime_capable) take the slot
+regime instead (count_locate_slots_t): the search stops at the k-mer seed
+and every candidate row is verified against its slim fat row, which holds
+the row's SA value and its pre-aligned text window.
+
 Text layout: the packed text (4 bits per symbol for cardinality <= 16, else
 8, little-endian within uint32 words) with TEXT_PAD_WORDS zero words in
 front, so the backward window read never clamps into real text (zero is the
@@ -41,6 +46,9 @@ _FULL = 0xFFFFFFFF
 # Expected spurious candidates per lane at the search->walk handover.
 SPURIOUS_TARGET = 0.06
 WIDE_CAP = 4  # candidate rows verified per wide lane
+# Slot regime: lanes whose seed width is WIDE_CAP+1..SLOT_EXT verify through
+# ext_groups(B) compacted groups of SLOT_EXT candidate slots.
+SLOT_EXT = 8
 
 
 def switch_step(dev: FmDeviceIndex) -> int:
@@ -57,6 +65,14 @@ def wide_groups(batch: int) -> int:
     wide settle on the card through this many group slots; overflow falls
     back to the classic re-dispatch."""
     return max(16, batch // 16)
+
+
+def ext_groups(batch: int) -> int:
+    """Extended-slot budget of the slot regime: lanes in the WIDE_CAP+1..
+    SLOT_EXT width band (the Poisson tail of a seed width near 1) settle
+    through this many groups; overflow falls back to the classic
+    re-dispatch."""
+    return max(16, batch // 32)
 
 
 def _reverse_symbols(word: torch.Tensor, bits: int) -> torch.Tensor:
@@ -110,6 +126,15 @@ def compare_text_suffixes_t(
     return ok
 
 
+def _compact(flags: torch.Tensor, groups: int):
+    """(lane of each of ``groups`` groups, valid): group g serves the g-th
+    flagged lane, the first index where the running count reaches g + 1;
+    groups past the flagged total get B (empty).  Also the running count."""
+    csum = torch.cumsum(flags.to(torch.int64), 0)
+    lane = torch.searchsorted(csum, torch.arange(1, groups + 1, device=flags.device), side="left")
+    return lane, lane < flags.shape[0], csum
+
+
 def count_locate_verify_t(
     dev: FmDeviceIndex,
     qt: torch.Tensor,
@@ -140,13 +165,8 @@ def count_locate_verify_t(
     G = wide_groups(B)
     device = starts.device
 
-    # Group g serves the g-th lane whose width fits WIDE_CAP: the first
-    # index where the running count reaches g+1 (keys past the total
-    # return B = empty group).
-    fitsable = wide & (width <= WIDE_CAP)
-    csum = torch.cumsum(fitsable.to(torch.int64), 0)
-    lane_of_group = torch.searchsorted(csum, torch.arange(1, G + 1, device=device), side="left")
-    valid_g = lane_of_group < B
+    # Group g serves the g-th lane whose width fits WIDE_CAP.
+    lane_of_group, valid_g, _ = _compact(wide & (width <= WIDE_CAP), G)
     lane_safe = torch.where(valid_g, lane_of_group, 0)
     # Empty groups read evenly spaced rows; their slots are discarded.
     spread_g = torch.arange(G, device=device) * max(1, (dev.bwt_len - 1) // max(1, G))
@@ -193,6 +213,123 @@ def count_locate_verify_t(
     text_pos = p - rem
 
     bundle = _pack_result_bundle(dev, text_pos, counts, redis, lane_or_dump, pos_slot, ok_slot)
+    return bundle, starts, ends
+
+
+def _read_fat(dev: FmDeviceIndex, rows: torch.Tensor) -> torch.Tensor:
+    """int32[N, rw] fat rows (uint32 bit patterns, ascending word order) of
+    int64[N] BWT rows, from one window_read over the flat rows."""
+    rw = dev.vw_row_words
+    return kernels.window_read(dev.vw_flat, rows * rw + (rw - 1), rw).flip(1)
+
+
+def _compare_fat(fat, qt, qlens, s: int, bits: int) -> torch.Tensor:
+    """bool[N, slots]: every query symbol at distance d in [s, qlen) equals
+    the fat row's symbol at word (d - s) // spw, slot (d - s) % spw.
+    fat int32[N, slots, rw]; qt int32[L, N]; qlens int64[N]."""
+    L = qt.shape[0]
+    shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=fat.device)
+    # Column j holds the text symbol at query distance s + j.
+    tsyms = ((fat[:, :, :-1, None] >> shifts) & ((1 << bits) - 1)).flatten(2)[:, :, : L - s]
+    q = qt[: L - s].flip(0).T  # [N, L - s]: the query symbol at distance s + j
+    dead = torch.arange(s, L, device=fat.device)[None, :] >= qlens[:, None]  # past the query's start
+    return ((tsyms == q[:, None, :]) | dead[:, None, :]).all(dim=2)
+
+
+def count_locate_slots_t(
+    dev: FmDeviceIndex,
+    qt: torch.Tensor,
+    qlens: torch.Tensor,
+    s: int,
+    *,
+    no_sentinel: bool = False,
+    seeded_floor: bool = False,
+):
+    """Slot-verify count+locate: no post-seed rank step.  qt: int32[L, B]
+    transposed right-aligned queries; qlens int64[B].
+
+    The search stops at the seed (s == kmer_len).  Every lane with 1 <=
+    width <= WIDE_CAP verifies all its candidate rows against their fat
+    rows (invalid slots repeat the lane's last valid row); lanes of width
+    WIDE_CAP+1..SLOT_EXT verify through ext_groups(B) groups of SLOT_EXT
+    slots and settle when at most one candidate survives; wider lanes,
+    multi-hit extended lanes, lanes with qlen <= s and hits, and multi-hit
+    lanes past the wide_groups(B) budget are flagged redis.  Multi-hit
+    settled lanes carry their slot positions in the wide groups.  Returns
+    the same ``(bundle, starts, ends)`` as count_locate_verify_t."""
+    if s != dev.kmer_len or dev.vw_flat is None:
+        raise ValueError("the slot path needs fat rows aligned at the seed step (s == kmer_len)")
+    starts, ends = search_ranges_t(
+        dev, qt, qlens, num_steps=s, no_sentinel=no_sentinel, seeded_floor=seeded_floor
+    )
+    width = counts_from_ranges(starts, ends)
+    long_enough = qlens > s
+    B = starts.shape[0]
+    L = qt.shape[0]
+    bits = 4 if dev.alphabet.cardinality <= 16 else 8
+    w = dev.verify_windows_w
+    if L > s + (32 // bits) * w:
+        raise ValueError(f"padded query length {L} exceeds the slot fat window")
+    device = starts.device
+
+    jslot = torch.arange(WIDE_CAP, device=device)
+    fits = long_enough & (width >= 1) & (width <= WIDE_CAP)
+    slot_valid = fits[:, None] & (jslot[None, :] < width[:, None])  # [B, WIDE_CAP]
+    jclip = torch.minimum(jslot[None, :], width.clamp_min(1)[:, None] - 1)
+    fat = _read_fat(dev, (starts[:, None] + jclip).reshape(-1)).reshape(B, WIDE_CAP, -1)
+    p_slot = fat[:, :, w].to(torch.int64) & _FULL
+    rem = torch.where(long_enough, qlens - s, 0)
+    ok = _compare_fat(fat, qt, qlens, s, bits) & slot_valid & (p_slot >= rem[:, None])
+    pos_adj = (p_slot - rem[:, None]) & _FULL  # uint32 wrap on unsettled slots
+    counts_v = ok.sum(dim=1)
+    settled = fits
+
+    # Extended band: compacted groups of SLOT_EXT slots; empty groups read
+    # evenly spaced rows, and their slots are discarded.
+    ext = long_enough & (width > WIDE_CAP) & (width <= SLOT_EXT)
+    Gx = ext_groups(B)
+    lane_xg, valid_x, _ = _compact(ext, Gx)
+    lane_sx = torch.where(valid_x, lane_xg, 0)
+    w_x = torch.where(valid_x, width[lane_sx], 0)
+    jx = torch.arange(SLOT_EXT, device=device)
+    sv_x = jx[None, :] < w_x[:, None]  # [Gx, SLOT_EXT]
+    jclip_x = torch.minimum(jx[None, :], w_x.clamp_min(1)[:, None] - 1)
+    spread_x = torch.arange(Gx, device=device) * max(1, (dev.bwt_len - 1) // max(1, Gx))
+    base_x = torch.where(valid_x, starts[lane_sx], spread_x)
+    fat_x = _read_fat(dev, (base_x[:, None] + jclip_x).reshape(-1)).reshape(Gx, SLOT_EXT, -1)
+    p_x = fat_x[:, :, w].to(torch.int64) & _FULL
+    rem_x = rem[lane_sx]
+    ok_x = _compare_fat(fat_x, qt[:, lane_sx], qlens[lane_sx], s, bits) & sv_x & (p_x >= rem_x[:, None])
+    cnt_x = ok_x.sum(dim=1)
+    settle_xg = valid_x & (cnt_x <= 1)
+    first_x = torch.argmax(ok_x.to(torch.uint8), dim=1)  # first True (0 when none)
+    pos_x = (p_x - rem_x[:, None]).gather(1, first_x[:, None])[:, 0] & _FULL
+    dump_x = torch.where(settle_xg, lane_xg, B)
+    settled_x = torch.zeros(B + 1, dtype=torch.bool, device=device)
+    settled_x[dump_x] = settle_xg
+    counts_x = torch.zeros(B + 1, dtype=torch.int64, device=device)
+    counts_x[dump_x] = cnt_x
+    pos_xl = torch.zeros(B + 1, dtype=torch.int64, device=device)
+    pos_xl[dump_x] = pos_x
+    settled_x, counts_x, pos_xl = settled_x[:B], counts_x[:B], pos_xl[:B]
+
+    counts = torch.where(settled, counts_v, width)
+    counts = torch.where(settled_x, counts_x, counts)
+    redis = (long_enough & (width >= 1) & ~(settled | settled_x)) | ((width >= 1) & ~long_enough)
+    first = torch.argmax(ok.to(torch.uint8), dim=1)
+    text_pos = pos_adj.gather(1, first[:, None])[:, 0]
+    text_pos = torch.where(settled_x, pos_xl, text_pos)
+
+    # Multi-hit settled lanes carry their slot positions through the wide
+    # groups; lanes past the budget re-dispatch.
+    multi = settled & (counts_v >= 2)
+    G = wide_groups(B)
+    lane_of_group, valid_g, csum = _compact(multi, G)
+    lane_safe = torch.where(valid_g, lane_of_group, 0)
+    ok_g = ok[lane_safe] & valid_g[:, None]
+    redis |= multi & (csum > G)
+    lane_of_group = torch.where(valid_g, lane_of_group, B)
+    bundle = _pack_result_bundle(dev, text_pos, counts, redis, lane_of_group, pos_adj[lane_safe], ok_g)
     return bundle, starts, ends
 
 

@@ -9,10 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles the CUDA kernels from awry_tpu_torch/csrc/ (nvcc, one
    process per source, all started together) into awry_tpu_torch/_build/.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card, exactly, at main-path shapes: window_read (k = 1, 2, 3) over a 1 GB
-   SA-sized table, occ_pair and backstep over chr1-sized nucleotide rows and
-   Swiss-Prot-sized amino rows (backstep rows include 0, the last row and
-   rows past the end).
+   card, exactly, at main-path shapes: window_read (k = 1, 2, 3, and k = 4
+   over 4 slots per lane) over a 1 GB SA-sized table, occ_pair and backstep
+   over chr1-sized nucleotide rows and Swiss-Prot-sized amino rows, occ
+   over them at the k-mer build's full chunk (positions and rows include
+   0, the last row, block edges and rows past either end).  Each path's
+   report (phases 6, 9 and 12) also holds every kernel call the path made
+   on its first batch (and the k-mer build's full chunk) against the plain
+   version on the same inputs.
 4. chr1 path: a chr1-scale index (250 Mbp of seeded random ACGT, k-mer seed
    length 13, mark ratio 1, SA ratio 8) built by the port's builder,
    shipped to the card, then 4 batches of 524,288 30 bp reads drawn from
@@ -24,11 +28,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    count equals a naive overlapping scan of the text.
 6. chr1 report: end-to-end queries/s and engine stats; how the time splits
    between host encode, serving from the wire and the device (profiler);
-   per-kernel device times (CUDA events, L2 flushed before each launch) at
-   the shapes the path gave each kernel, beside the plain version, one
-   torch indexing call (window_read only) and the bound from bytes moved.
+   every kernel call of the path's first batch, recorded, held exactly
+   against its plain version; per-kernel device times (CUDA events, L2
+   flushed before each launch) at the shapes the path gave each kernel,
+   beside the plain version, one torch indexing call (window_read only) and
+   the bound from bytes moved.
    The chr1 engine is then released and the card's cache emptied.
-7. GRCh38-shaped path (bench.py grch38_3.1Gbp_dna: 100 bp reads, batches of
+7. chr20-shaped path (bench.py chr20_64Mbp_dna: 64 Mbp, k = 13, mark ratio
+   1, SA ratio 8, 30 bp reads, batches of 524,288; seeded random ACGT in one
+   record instead of the assembly): one 1 kbp segment planted 3, 6 and 12
+   times.  The k-mer table is built on the card (build_kmer_table_on_device:
+   every range update ranked through occ, launch counts set to 0 just
+   before the build) and held bit-equal to the host counting table; the
+   index ships with its slot rows and is served in the slot regime (4
+   batches of 524,288 drawn reads plus 512 reads: random, reads of each
+   repeat, drawn), counts set to 0 just before serving.
+8. chr20 correctness: every hit spells its query, every drawn read and every
+   planted copy is found at its own position, 64 counts equal a naive scan,
+   the repeat reads report 3, 6 and 12 hits (or more, confirmed by naive
+   scan).
+9. chr20 report: as phase 6, with the seed-width classes of one batch (the
+   SLOT_EXT band and how many of its lanes settled), occ at the k-mer
+   build's chunk shape (with and without the L2 flush), the device against
+   the host k-mer build; then the regimes side by side on the same index:
+   the slot regime and the switch step (slots=False) each serve the path's
+   batches and 4 batches of 524,288 uniform drawn reads that overlap no
+   planted copy (bench.py chr20's traffic), with the same answers, every
+   drawn read at its own position, rates and device times.
+10. GRCh38-shaped path (bench.py grch38_3.1Gbp_dna: 100 bp reads, batches of
    524,288, k = 13, mark ratio 4, SA ratio 8; scale cut to 1 Gbp): 24
    records in the proportions of GRCh38's chromosomes 1-22, X and Y, each
    seeded random ACGT between two 10,000-symbol N runs, joined by the N
@@ -38,11 +65,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    reads of both repeats, reads right after a leading N run, drawn reads),
    served through count_locate_stream with the counts set to 0 just
    before.  Every locate walks the marked LF walk through backstep.
-8. GRCh38 correctness, per record: every hit spells its query in its
+11. GRCh38 correctness, per record: every hit spells its query in its
    record, every drawn read (and every planted copy of a repeat read) is
    found at its own (record, local), 64 counts equal a naive scan, and the
    12x repeat reads report 12 hits (or more, confirmed by naive scan).
-9. GRCh38 report: as phase 6, with the walk visits' backstep times.
+12. GRCh38 report: as phase 6, with the walk visits' backstep times.
 
 The last three lines are the card's name and power limit, the kernels JSON
 and {"ok": true, "device": {...}}.  ``--record PATH`` also writes the full
@@ -66,8 +93,20 @@ import numpy as np
 import torch
 
 from awry_tpu_torch import Alphabet, FmBuildArgs, build_from_records
-from awry_tpu_torch.alphabet import code_to_index_table, index_to_code_table
-from awry_tpu_torch.ops import FmQueryEngine, fused_row_words, kernels
+from awry_tpu_torch.alphabet import code_to_index_table, encode_ascii, index_to_code_table
+from awry_tpu_torch.build.kmer_count import populate_kmer_table_counting
+from awry_tpu_torch.ops import (
+    FmQueryEngine,
+    count_locate_slots_t,
+    counts_from_ranges,
+    fused_row_words,
+    kernels,
+    populate_kmer_table_device,
+    slot_regime_capable,
+    to_device,
+)
+from awry_tpu_torch.ops.kmer import _level_chunk
+from awry_tpu_torch.ops.verify import SLOT_EXT, WIDE_CAP, unpack_verify_bundle, wide_groups
 
 N_SYMBOLS = 250_000_000  # chr1 scale (bench.py chr1_250Mbp_dna)
 KMER_LEN = 13
@@ -76,6 +115,10 @@ BATCH = 524_288
 NUM_BATCHES = 4
 NUM_RANDOM = 384
 NUM_NAIVE = 64
+
+# chr20-shaped path (bench.py chr20_64Mbp_dna): the slot regime.
+C_SYMBOLS = 64_000_000
+C_REPEATS = (3, 6, 12)  # wide-meta lanes, the SLOT_EXT band, past it
 
 # GRCh38-shaped path (bench.py grch38_3.1Gbp_dna), scale cut to 1 Gbp.
 G_SYMBOLS = 1_000_000_000
@@ -96,15 +139,16 @@ GRCH38_NAMES = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > 2x the 50 MB L2
-KERNELS = ("window_read", "occ_pair", "backstep")
-SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS}
+KERNELS = ("window_read", "occ_pair", "backstep", "occ")
+SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS} | {"occ": "awry_tpu_torch/csrc/occ_pair.cu"}
 REPLACES = {
     "window_read": "awry_tpu/ops/sweep.py:1036",  # _anchored_text_kernel
     "occ_pair": "awry_tpu/ops/sweep.py:1084",  # _occ_pair_pay_kernel_anchored (and :1062)
     "backstep": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored
+    "occ": "awry_tpu/ops/sweep.py:1108",  # _occ_kernel_anchored (and :291)
 }
 # Arguments of each kernel that carry per-request data (recorded as copies).
-REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,)}
+REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2)}
 LETTERS = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
@@ -192,13 +236,15 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
     out = {}
     reqs = BATCH + BATCH // 4  # the walk's rows per verify batch (B + 4 slots per wide group)
     table = random_words((N_SYMBOLS + 1,), device, gen)
-    wbase = torch.randint(-8, table.shape[0] + 8, (reqs,), device=device, generator=gen)
-    for k in (1, 2, 3):
+    # k = 4 over WIDE_CAP slots per lane: the slot regime's fat-row read.
+    for k, n in ((1, reqs), (2, reqs), (3, reqs), (4, WIDE_CAP * BATCH)):
+        wbase = torch.randint(-8, table.shape[0] + 8, (n,), device=device, generator=gen)
         err = max_abs_err(kernels.window_read(table, wbase, k), kernels.window_read_plain(table, wbase, k))
         if err != 0:
             raise AssertionError(f"window_read k={k} disagrees with its plain version (max abs err {err})")
-        out[f"window_read_k{k}"] = {"requests": wbase.shape[0], "table_words": table.shape[0], "max_abs_err": err}
+        out[f"window_read:k{k}"] = {"requests": n, "table_words": table.shape[0], "max_abs_err": err}
     del table, wbase
+    chunk = 2 * _level_chunk(4, 4**KMER_LEN)  # occ requests of the k-mer build's full chunk
     for alphabet, symbols in ((Alphabet.NUCLEOTIDE, N_SYMBOLS), (Alphabet.AMINO, 20_000_000)):
         rw = fused_row_words(alphabet)
         nb = -(-(symbols + 1) // 256)
@@ -212,7 +258,18 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
         if err != 0:
             raise AssertionError(f"occ_pair ({alphabet.name}) disagrees with its plain version (max abs err {err})")
-        out[f"occ_pair_{alphabet.name.lower()}"] = {"requests": BATCH, "rows": nb, "row_words": rw, "max_abs_err": err}
+        out[f"occ_pair:{alphabet.name.lower()}"] = {"requests": BATCH, "rows": nb, "row_words": rw, "max_abs_err": err}
+
+        # occ: positions 0, the last row (bwt_len - 1 = symbols), block
+        # edges, past either end, then random ones; symbols past the alphabet.
+        edges = torch.tensor([0, symbols, 255, 256, nb * 256 - 1, nb * 256 + 7, -3], device=device)
+        pos = torch.cat([edges, torch.randint(-1, nb * 256 + 8, (chunk - edges.shape[0],), device=device, generator=gen)])
+        osym = torch.randint(-1, alphabet.cardinality + 1, (chunk,), dtype=torch.int32, device=device, generator=gen)
+        err = max_abs_err(kernels.occ(blocks, pos, osym, codes, alphabet.num_planes),
+                          kernels.occ_plain(blocks, pos, osym, codes, alphabet.num_planes))
+        if err != 0:
+            raise AssertionError(f"occ ({alphabet.name}) disagrees with its plain version (max abs err {err})")
+        out[f"occ:{alphabet.name.lower()}"] = {"requests": chunk, "rows": nb, "row_words": rw, "max_abs_err": err}
 
         # backstep: rows 0, the last row (bwt_len - 1 = symbols), past the
         # end and below 0, then random rows.
@@ -227,8 +284,8 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
         if err != 0:
             raise AssertionError(f"backstep ({alphabet.name}) disagrees with its plain version (max abs err {err})")
-        out[f"backstep_{alphabet.name.lower()}"] = {"requests": reqs, "rows": nb, "row_words": rw, "max_abs_err": err}
-        del blocks, pos_a, pos_b, sym, rows, got, want
+        out[f"backstep:{alphabet.name.lower()}"] = {"requests": reqs, "rows": nb, "row_words": rw, "max_abs_err": err}
+        del blocks, pos_a, pos_b, sym, pos, osym, rows, got, want
     return out
 
 
@@ -236,16 +293,17 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
 
 
 @contextlib.contextmanager
-def recording_kernel_inputs(calls: list):
-    """Record the inputs of every kernel call made inside the block (the
-    wrappers themselves still run and count their launches)."""
+def recording_kernel_inputs(calls: list, want=lambda name, args: True):
+    """Record the inputs of every kernel call made inside the block for
+    which ``want(name, args)`` holds (the wrappers themselves still run)."""
     real = {name: getattr(kernels, name) for name in KERNELS}
 
     def recorder(name):
         fn, keep = real[name], REQUEST_ARGS[name]
 
         def rec(*args):
-            calls.append((name, tuple(a.clone() if i in keep else a for i, a in enumerate(args))))
+            if want(name, args):
+                calls.append((name, tuple(a.clone() if i in keep else a for i, a in enumerate(args))))
             return fn(*args)
 
         # A wrapper counts its launches on the function its module name
@@ -280,18 +338,19 @@ def serve(engine: FmQueryEngine, batches: list, device: torch.device) -> dict:
             "queries": sum(len(b) for b in batches)}
 
 
-def ship(index, device: torch.device) -> tuple[FmQueryEngine, float]:
+def ship(index, device: torch.device, **kw) -> tuple[FmQueryEngine, float]:
     t0 = time.perf_counter()
-    engine = FmQueryEngine(index, device=device)
+    engine = FmQueryEngine(index, device=device, **kw)
     torch.cuda.synchronize(device)
     ship_s = time.perf_counter() - t0
     dev = engine.device_index
     table_bytes = {
         name: getattr(dev, name).numel() * getattr(dev, name).element_size()
-        for name in ("blocks", "kmer_flat", "text_sampled_sa", "text_packed")
+        for name in ("blocks", "kmer_flat", "text_sampled_sa", "text_packed", "vw_flat")
+        if getattr(dev, name) is not None
     }
-    log(f"index on {device}: ship {ship_s:.3f} s, switch step {engine._verify_s}, mark ratio "
-        f"{dev.mark_ratio}, tables {table_bytes}")
+    log(f"index on {device}: ship {ship_s:.3f} s, {'slot regime' if engine._verify_slots else 'switch step'} "
+        f"s={engine._verify_s}, mark ratio {dev.mark_ratio}, tables {table_bytes}")
     return engine, ship_s
 
 
@@ -340,19 +399,19 @@ def grch38_text(rng: np.random.Generator):
     return text, starts, lengths
 
 
-def plant_repeats(rng, text, starts, lengths) -> list[tuple[np.ndarray, np.ndarray]]:
-    """Copy one REPEAT_LEN segment to 3 and another to 12 random,
-    non-overlapping places inside record interiors; returns each segment
-    with its copies' global positions."""
+def plant_repeats(rng, text, starts, lengths, counts=(3, 12), margin=N_RUN) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Copy one REPEAT_LEN segment per entry of ``counts`` to that many
+    random, non-overlapping places at least ``margin`` inside a record;
+    returns each segment with its copies' global positions."""
     weights = lengths / lengths.sum()
     taken: list[int] = []
     out = []
-    for copies in (3, 12):
+    for copies in counts:
         seg = LETTERS[rng.integers(0, 4, size=REPEAT_LEN, dtype=np.uint8)]
         pos: list[int] = []
         while len(pos) < copies:
             r = int(rng.choice(len(lengths), p=weights))
-            p = int(starts[r] + N_RUN + rng.integers(0, lengths[r] - 2 * N_RUN - REPEAT_LEN))
+            p = int(starts[r] + margin + rng.integers(0, lengths[r] - 2 * margin - REPEAT_LEN))
             if all(abs(p - q) >= REPEAT_LEN for q in taken):
                 taken.append(p)
                 pos.append(p)
@@ -422,7 +481,114 @@ def grch38_path(device: torch.device, rng: np.random.Generator) -> dict:
     run.update({
         "text_np": text_np, "text": text, "engine": engine, "build_s": build_s, "ship_s": ship_s,
         "rec_starts": rec_starts, "rec_lengths": rec_lengths, "repeats": repeats, "batches": batches,
-        "qsyms": qsyms, "required": required,
+        "qsyms": qsyms, "required": required, "qlen": G_QLEN,
+        "repeat_lanes": [256 + 64 * i + np.arange(64) for i in range(len(repeats))],
+    })
+    return run
+
+
+def chr20_path(device: torch.device, rng: np.random.Generator) -> dict:
+    text_np = LETTERS[rng.integers(0, 4, size=C_SYMBOLS, dtype=np.uint8)]
+    rec_starts, rec_lengths = np.array([0]), np.array([C_SYMBOLS])
+    repeats = plant_repeats(rng, text_np, rec_starts, rec_lengths, counts=C_REPEATS, margin=0)
+    text = text_np.tobytes()
+
+    # The build, its k-mer table on the card: launch counts from 0.
+    args = FmBuildArgs(lookup_table_kmer_len=KMER_LEN, locate_mark_ratio=1, suffix_array_compression_ratio=8,
+                       build_kmer_table_on_device=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    index = build_from_records([("chr20_synthetic", text)], args, device=device)
+    build_s = time.perf_counter() - t0
+    build_launches = launch_counts()
+    log(f"index build seconds: {build_s:.3f}; launches {build_launches}")
+    require_launches("chr20 k-mer build", build_launches, ("occ",))
+
+    # The host counting table of the same text, the device build timed
+    # alone, and once more under the profiler (recording its first
+    # full-chunk occ call for the report).
+    t0 = time.perf_counter()
+    host_table = populate_kmer_table_counting(encode_ascii(Alphabet.NUCLEOTIDE, text_np), Alphabet.NUCLEOTIDE, KMER_LEN)
+    host_kmer_s = time.perf_counter() - t0
+    if not np.array_equal(index.kmer_table, host_table):
+        raise AssertionError("the k-mer table built on the card differs from the host counting table")
+    minimal = to_device(index, device, minimal=True)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    again = populate_kmer_table_device(minimal, KMER_LEN)
+    device_kmer_s = time.perf_counter() - t0
+    if not np.array_equal(again, host_table):
+        raise AssertionError("the timed k-mer build on the card differs from the host counting table")
+    del again
+    full = 2 * _level_chunk(4, 4**KMER_LEN)
+    occ_calls: list = []
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with (recording_kernel_inputs(occ_calls, lambda name, a: name == "occ" and a[1].shape[0] == full and not occ_calls),
+          torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof):
+        again = populate_kmer_table_device(minimal, KMER_LEN)
+    device_kmer_warm_s = time.perf_counter() - t0
+    if not np.array_equal(again, host_table):
+        raise AssertionError("the profiled k-mer build on the card differs from the host counting table")
+    del minimal, again, host_table
+    events = prof.key_averages()
+
+    def device_s(match=""):
+        return sum(getattr(e, "self_device_time_total", 0) for e in events if match in e.key) / 1e6
+
+    kmer_build = {"device_s": device_kmer_s, "device_profiled_s": device_kmer_warm_s,
+                  "warm_device_busy_s": device_s(), "warm_table_copy_to_host_s": device_s("Memcpy DtoH"),
+                  "warm_occ_kernels_s": device_s("occ_kernel"), "host_counting_s": host_kmer_s,
+                  "occ_requests_per_full_chunk": full}
+    log(f"k-mer table (k={KMER_LEN}) equal to the host counting table: {json.dumps(kmer_build)}")
+
+    capable = slot_regime_capable(index)
+    engine, ship_s = ship(index, device)
+    if not (capable and engine._verify_slots and engine._verify_s == KMER_LEN):
+        raise AssertionError(f"the chr20-shaped index is not served in the slot regime (capable {capable})")
+
+    # 4 batches of drawn reads; a tail of 128 random reads, 96 reads of each
+    # repeat and 96 drawn reads.
+    ar = np.arange(QLEN)
+    batches, qsyms, required = [], [], []
+    for _ in range(NUM_BATCHES):
+        st = rng.integers(0, C_SYMBOLS - QLEN, size=BATCH)
+        batches.append([text[s : s + QLEN] for s in st.tolist()])
+        qsyms.append(text_np[st[:, None] + ar])
+        required.append((np.arange(BATCH), st))
+    rnd = LETTERS[rng.integers(0, 4, size=(128, QLEN), dtype=np.uint8)]
+    rep_off = [rng.integers(0, REPEAT_LEN - QLEN + 1, size=96) for _ in repeats]
+    drawn = rng.integers(0, C_SYMBOLS - QLEN, size=96)
+    tail_syms = np.concatenate([rnd, *[seg[o[:, None] + ar] for (seg, _), o in zip(repeats, rep_off)],
+                                text_np[drawn[:, None] + ar]])
+    batches.append([r.tobytes() for r in tail_syms])
+    qsyms.append(tail_syms)
+    repeat_lanes = [128 + 96 * i + np.arange(96) for i in range(len(repeats))]
+    q_idx, q_pos = [416 + np.arange(96)], [drawn]
+    for lanes, (_, copies), o in zip(repeat_lanes, repeats, rep_off):
+        q_idx.append(np.repeat(lanes, len(copies)))
+        q_pos.append((o[:, None] + copies[None, :]).reshape(-1))
+    required.append((np.concatenate(q_idx), np.concatenate(q_pos)))
+
+    # bench.py chr20's traffic, for the regime comparison: 4 batches of
+    # uniform drawn reads, none overlapping a planted copy.
+    planted = np.concatenate([copies for _, copies in repeats])
+    uniform_starts = []
+    for _ in range(NUM_BATCHES):
+        st = rng.integers(0, C_SYMBOLS - QLEN, size=BATCH + 4096)
+        near = ((st[:, None] > planted - QLEN) & (st[:, None] < planted + REPEAT_LEN)).any(axis=1)
+        uniform_starts.append(st[~near][:BATCH])
+        if uniform_starts[-1].shape[0] != BATCH:
+            raise AssertionError("too few uniform reads clear of the planted copies")
+
+    run = serve(engine, batches, device)
+    run.update({
+        "text_np": text_np, "text": text, "engine": engine, "build_s": build_s, "ship_s": ship_s,
+        "rec_starts": rec_starts, "rec_lengths": rec_lengths, "repeats": repeats, "batches": batches,
+        "qsyms": qsyms, "required": required, "qlen": QLEN, "repeat_lanes": repeat_lanes,
+        "build_launches": build_launches, "kmer_build": kmer_build, "occ_call": occ_calls[0][1],
+        "index": index, "uniform_starts": uniform_starts,
+        "uniform_batches": [[text[s : s + QLEN] for s in st.tolist()] for st in uniform_starts],
     })
     return run
 
@@ -475,11 +641,15 @@ def check_chr1(run: dict, rng: np.random.Generator) -> dict:
     return {"hits_checked": checked_hits, "naive_checked": len(picks)}
 
 
-def check_grch38(run: dict, rng: np.random.Generator) -> dict:
+def check_records(run: dict, rng: np.random.Generator) -> dict:
+    """Per record: every hit spells its query, every required (query,
+    position) pair is found, 64 counts equal a naive scan, and every repeat
+    read reports at least its copies (more only if a naive scan agrees)."""
     text_np, text = run["text_np"], run["text"]
     rec_starts, rec_lengths = run["rec_starts"], run["rec_lengths"]
     total = text_np.shape[0]
-    ar = np.arange(G_QLEN)
+    qlen = run["qlen"]
+    ar = np.arange(qlen)
     checked_hits = 0
     for b, res in enumerate(run["results"]):
         counts, seq_idx, local, offsets = res
@@ -490,7 +660,7 @@ def check_grch38(run: dict, rng: np.random.Generator) -> dict:
             raise AssertionError(f"batch {b}: offsets and counts disagree")
         if ((seq_idx < 0) | (seq_idx >= len(rec_starts))).any():
             raise AssertionError(f"batch {b}: hit in no record")
-        if ((local < 0) | (local > rec_lengths[seq_idx] - G_QLEN)).any():
+        if ((local < 0) | (local > rec_lengths[seq_idx] - qlen)).any():
             raise AssertionError(f"batch {b}: hit position outside its record")
         gpos = rec_starts[seq_idx] + local
         qidx = np.repeat(np.arange(nb), counts.astype(np.int64))
@@ -508,8 +678,7 @@ def check_grch38(run: dict, rng: np.random.Generator) -> dict:
     picks = [(run["batches"][0][i], int(c0[i])) for i in rng.integers(0, len(c0), size=NUM_NAIVE - 16)]
     picks += [(tail[i], int(cl[i])) for i in range(16)]
     repeat_counts = {}
-    for i, (_, copies) in enumerate(run["repeats"]):
-        lanes = 256 + 64 * i + np.arange(64)
+    for lanes, (_, copies) in zip(run["repeat_lanes"], run["repeats"]):
         c = cl[lanes].astype(np.int64)
         if (c < len(copies)).any():
             raise AssertionError(f"a {len(copies)}x repeat read reports fewer hits than its copies")
@@ -524,12 +693,14 @@ def check_grch38(run: dict, rng: np.random.Generator) -> dict:
 # -- reports -------------------------------------------------------------------
 
 
-def time_ms(fn, device, reps: int, flush: torch.Tensor) -> float:
-    """Mean device time of fn() over reps launches, L2 flushed before each."""
+def time_ms(fn, device, reps: int, flush: torch.Tensor | None) -> float:
+    """Mean device time of fn() over reps launches, the L2 flushed before
+    each unless ``flush`` is None."""
     fn()
     total = 0.0
     for _ in range(reps):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -565,6 +736,20 @@ def occ_pair_bound(blocks, pos_a, pos_b, sym, codes, nplanes) -> tuple[float, fl
     r = pos_a.shape[0]
     ops = 2 * r * (nplanes * 16 + 8 * 3 + 1)
     return float(sectors * 32 + r * 28), float(ops)
+
+
+def occ_bound(blocks, pos, sym, codes, nplanes) -> tuple[float, float]:
+    """(bytes, ops): each distinct 32 B sector touched (V plane sectors per
+    distinct row, the milestone's sector per distinct (row, sector)), the
+    12 B of request and 4 B of result per request; ops per request V*8 XOR
+    + V*8 AND + 8 mask AND + 8 popcount + 8 add + 1 milestone add."""
+    spr = blocks.shape[1] // 8  # 32 B sectors per row
+    rows = pos.clamp(0, blocks.shape[0] * 256 - 1) >> 8
+    s = sym.clamp(0, codes.shape[0] - 1).to(torch.int64)
+    plane = (rows[:, None] * spr + torch.arange(nplanes, device=rows.device)).reshape(-1)
+    sectors = torch.unique(torch.cat([plane, rows * spr + ((nplanes * 8 + s) >> 3)])).numel()
+    r = pos.shape[0]
+    return float(sectors * 32 + r * 16), float(r * (nplanes * 16 + 8 * 3 + 1))
 
 
 def backstep_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx) -> tuple[float, float]:
@@ -622,24 +807,45 @@ def time_split(run: dict, device: torch.device) -> dict:
     }
 
 
-def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict]:
-    """Per call site of one verify batch, and per kernel summed over them."""
+def result_err(got, want) -> int:
+    """max_abs_err over a kernel's outputs (a tensor or a tuple of them)."""
+    if isinstance(got, tuple):
+        return max(max_abs_err(g, w) for g, w in zip(got, want, strict=True))
+    return max_abs_err(got, want)
+
+
+def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, dict]:
+    """Every recorded call held exactly against its plain version on the
+    same inputs; then per call site of one verify batch, and per kernel
+    summed over them; and per kernel the calls checked and their largest
+    error."""
     engine = run["engine"]
     dev = engine.device_index
     batch = len(run["batches"][0])
-    names = {id(dev.kmer_flat): "seed", id(dev.text_sampled_sa): "sa", id(dev.text_packed): "text"}
+    names = {id(dev.kmer_flat): "seed", id(dev.text_sampled_sa): "sa", id(dev.text_packed): "text",
+             id(dev.vw_flat): "slot fat"}
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
     rows = []
     per_kernel = {}
     visits = 0
-    for kind, args in run["calls"]:
-        if args[1].shape[0] < batch:
-            continue  # a re-dispatch call, not the verify path's
+    # The k-mer build's occ call (chr20 path) is timed beside the serving calls.
+    calls = run["calls"] + ([("occ", run["occ_call"])] if "occ_call" in run else [])
+    checked: dict = {}
+    for kind, args in calls:
         fn = getattr(kernels, kind)
         plain = getattr(kernels, f"{kind}_plain")
+        err = result_err(fn(*args), plain(*args))
+        if err != 0:
+            raise AssertionError(f"{kind} disagrees with its plain version on a main-path call "
+                                 f"({args[1].shape[0]} requests): max abs err {err}")
+        c = checked.setdefault(kind, {"calls": 0, "max_abs_err": 0})
+        c["calls"] += 1
+        c["max_abs_err"] = max(c["max_abs_err"], err)
+        if args[1].shape[0] < batch:
+            continue  # a re-dispatch call, not the verify path's: checked, not timed
         ms = time_ms(lambda: fn(*args), device, 20, flush)
         plain_ms = time_ms(lambda: plain(*args), device, 5, flush)
-        lib_ms = None
+        lib_ms = warm_ms = None
         if kind == "window_read":
             flat, wbase, k = args
             site = f"{names.get(id(flat), 'table')} k={k}"
@@ -649,21 +855,29 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict]:
         elif kind == "occ_pair":
             site = "rank step"
             nbytes, ops = occ_pair_bound(*args)
+        elif kind == "occ":
+            # The build's rows (40 MB at chr20 scale) stay in L2 between its
+            # launches: time it without the flush as well.
+            site = "k-mer build chunk"
+            nbytes, ops = occ_bound(*args)
+            warm_ms = time_ms(lambda: fn(*args), device, 20, None)
         else:
             visits += 1
             site = f"walk visit {visits}"
             nbytes, ops = backstep_bound(*args)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
         row = {
-            "kernel": kind, "site": site, "requests": int(args[1].shape[0]), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bytes": nbytes, "ops": ops,
+            "kernel": kind, "site": site, "requests": int(args[1].shape[0]), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bytes": nbytes, "ops": ops, "max_abs_err": err,
         }
+        if warm_ms is not None:
+            row["ms_l2_not_flushed"] = warm_ms
         rows.append(row)
         agg = per_kernel.setdefault(kind, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0})
         for key in ("ms", "plain_ms", "bound_ms", "bytes", "ops"):
             agg[key] += row[key]
         agg["library_ms"] = None if lib_ms is None or agg["library_ms"] is None else agg["library_ms"] + lib_ms
-    return rows, per_kernel
+    return rows, per_kernel, checked
 
 
 def report(name: str, run: dict, device: torch.device) -> dict:
@@ -673,18 +887,106 @@ def report(name: str, run: dict, device: torch.device) -> dict:
     log(f"  {name}: {qps:.1f} queries/s end to end, engine stats {json.dumps(stats)}")
     split = time_split(run, device)
     log(f"  {name} time split: {json.dumps(split)}")
-    rows, per_kernel = kernel_report(run, device)
+    rows, per_kernel, checked = kernel_report(run, device)
+    log(f"  {name} main-path kernel calls equal to their plain versions: {json.dumps(checked)}")
     for row in rows:
         log("  " + json.dumps(row))
+    build_launches = run.get("build_launches", dict.fromkeys(KERNELS, 0))
+    launches = {kind: run["launches"][kind] + build_launches[kind] for kind in KERNELS}
     for kind, agg in per_kernel.items():
         n = run["launches"][kind]
         log(f"  {name} {kind}: {n} launches over {stats['batches']} verify batches "
-            f"({n / stats['batches']:.2f} per batch); per-batch ms {agg['ms']:.4f}")
+            f"({n / stats['batches']:.2f} per batch), {build_launches[kind]} in the index build; "
+            f"ms per site sum {agg['ms']:.4f}")
     return {
         "build_index_s": run["build_s"], "ship_s": run["ship_s"], "serve_s": run["serve_s"],
-        "queries": run["queries"], "queries_per_s": qps, "stats": stats, "launches": run["launches"],
-        "time_split": split, "sites": rows, "per_kernel": per_kernel,
+        "queries": run["queries"], "queries_per_s": qps, "stats": stats, "launches": launches,
+        "serve_launches": run["launches"], "build_launches": build_launches,
+        "time_split": split, "sites": rows, "per_kernel": per_kernel, "checked_vs_plain": checked,
     }
+
+
+def slot_width_classes(engine: FmQueryEngine, batch: list) -> dict:
+    """The lanes of one batch by seed width, and the flags the slot path
+    gives them, from one direct count_locate_slots_t call."""
+    wire, qlens = engine.encode_queries(batch)
+    qt, ql, flags = engine._upload(wire, qlens)
+    bundle, starts, ends = count_locate_slots_t(engine.device_index, qt, ql, engine._verify_s, **flags)
+    b, n = qt.shape[1], len(batch)
+    width = counts_from_ranges(starts, ends).cpu().numpy()[:n]
+    redis = unpack_verify_bundle(bundle.cpu().numpy(), b, wide_groups(b))[2][:n]
+    band = (width > WIDE_CAP) & (width <= SLOT_EXT)
+    return {
+        "lanes": n, "width_0": int((width == 0).sum()), "width_1": int((width == 1).sum()),
+        "width_2_to_4": int(((width >= 2) & (width <= WIDE_CAP)).sum()), "slot_ext_band": int(band.sum()),
+        "slot_ext_settled": int((band & ~redis).sum()), "past_slot_ext": int((width > SLOT_EXT).sum()),
+        "redis": int(redis.sum()),
+    }
+
+
+def same_answers(a, b) -> bool:
+    """Two (counts, seq_idx, local, offsets) results hold the same counts
+    and the same hits per query, in whatever order."""
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[3], b[3])):
+        return False
+    qidx = np.repeat(np.arange(a[0].shape[0]), a[0].astype(np.int64))
+    oa, ob = np.lexsort((a[2], a[1], qidx)), np.lexsort((b[2], b[1], qidx))
+    return np.array_equal(a[1][oa], b[1][ob]) and np.array_equal(a[2][oa], b[2][ob])
+
+
+def check_drawn(text_np: np.ndarray, res, starts: np.ndarray) -> int:
+    """Reads drawn from a one-record text at ``starts``: every hit spells its
+    read and every read is found at its own position; returns the hits."""
+    counts, _, local, _ = res
+    n, total = starts.shape[0], text_np.shape[0]
+    ar = np.arange(QLEN)
+    qidx = np.repeat(np.arange(n), counts.astype(np.int64))
+    if not (text_np[local[:, None] + ar] == text_np[starts[qidx, None] + ar]).all():
+        raise AssertionError("a reported hit does not spell its drawn read")
+    if not np.isin(np.arange(n) * (total + 1) + starts, qidx * (total + 1) + local).all():
+        raise AssertionError("a drawn read was not found at its own position")
+    return local.shape[0]
+
+
+def regime_summary(engine: FmQueryEngine, served: dict, batches: list, device: torch.device) -> dict:
+    served = served | {"engine": engine, "batches": batches}
+    return {
+        "serve_s": served["serve_s"], "queries_per_s": served["queries"] / served["serve_s"],
+        "stats": dict(engine.stats), "launches": served["launches"], "time_split": time_split(served, device),
+    }
+
+
+def regime_comparison(run: dict, device: torch.device) -> dict:
+    """The slot regime against the switch step (slots=False) on the same
+    index, on two traffics: the path's batches (planted repeats in each) and
+    4 batches of uniform drawn reads clear of the planted copies (bench.py
+    chr20's traffic, which the slot regime answers first, then the switch
+    step).  Both regimes must give the same answers."""
+    index = run.pop("index")
+    uniform, text_np = run["uniform_batches"], run["text_np"]
+    slot = run["engine"]
+    slot_uniform = serve(slot, uniform, device)
+    out = {"uniform": {"slot": regime_summary(slot, slot_uniform, uniform, device)}}
+    switch, ship_s = ship(index, device, slots=False)
+    del index
+    if switch._verify_slots:
+        raise AssertionError("slots=False still serves in the slot regime")
+    sw = serve(switch, run["batches"], device)
+    for b, (x, y) in enumerate(zip(run["results"], sw["results"], strict=True)):
+        if not same_answers(x, y):
+            raise AssertionError(f"batch {b}: the switch-step path answers differently from the slot path")
+    out["planted"] = {"switch": regime_summary(switch, sw, run["batches"], device)}
+    sw_uniform = serve(switch, uniform, device)
+    hits = 0
+    for b, (x, y, st) in enumerate(zip(slot_uniform["results"], sw_uniform["results"], run["uniform_starts"],
+                                       strict=True)):
+        if not same_answers(x, y):
+            raise AssertionError(f"uniform batch {b}: the switch-step path answers differently from the slot path")
+        hits += check_drawn(text_np, x, st)
+    out["uniform"]["switch"] = regime_summary(switch, sw_uniform, uniform, device)
+    out.update({"switch_step": switch._verify_s, "switch_ship_s": ship_s, "uniform_hits_checked": hits})
+    switch.release()
+    return out
 
 
 def require_launches(name: str, launches: dict, kinds) -> None:
@@ -742,18 +1044,51 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
 
     t0 = time.perf_counter()
-    run = grch38_path(device, rng)
-    log(f"phase 7 GRCh38-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; launches "
+    run = chr20_path(device, rng)
+    log(f"phase 7 chr20-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; serve launches "
         f"{run['launches']}; peak device memory {torch.cuda.max_memory_allocated(device)} B "
         f"({time.perf_counter() - t0:.3f} s with text and build)")
-    require_launches("GRCh38-shaped", run["launches"], KERNELS)
+    require_launches("chr20-shaped", run["launches"], ("window_read",))
+    t0 = time.perf_counter()
+    checks = check_records(run, rng)
+    log(f"phase 8 chr20 correctness: {checks} ({time.perf_counter() - t0:.3f} s)")
+    log("phase 9 chr20 report:")
+    paths["chr20"] = report("chr20", run, device) | {"checks": checks, "kmer_build": run["kmer_build"]}
+    paths["chr20"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    paths["chr20"]["width_classes"] = slot_width_classes(run["engine"], run["batches"][0])
+    log(f"  chr20 seed widths of batch 0: {json.dumps(paths['chr20']['width_classes'])}")
+    regimes = regime_comparison(run, device)
+    regimes["planted"]["slot"] = {key: paths["chr20"][key] for key in ("serve_s", "queries_per_s", "stats", "time_split")}
+    paths["chr20"]["regimes"] = regimes
+    log(f"  chr20 regimes (switch step s={regimes['switch_step']}); uniform reads: "
+        f"{regimes['uniform_hits_checked']} hits checked, same answers in both")
+    for traffic in ("planted", "uniform"):
+        for regime in ("slot", "switch"):
+            r = regimes[traffic][regime]
+            split = r["time_split"]
+            log(f"  chr20 {traffic} traffic, {regime}: {r['queries_per_s']:.1f} queries/s end to end, "
+                f"{split['queries'] / split['wire_serve_s']:.1f} from the wire, device {split['device_s']} s "
+                f"over {split['batches']} batches; fast-path batches {r['stats']['fast_path_batches']} "
+                f"of {r['stats']['batches']}")
+    run["engine"].release()
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+
+    t0 = time.perf_counter()
+    run = grch38_path(device, rng)
+    log(f"phase 10 GRCh38-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; launches "
+        f"{run['launches']}; peak device memory {torch.cuda.max_memory_allocated(device)} B "
+        f"({time.perf_counter() - t0:.3f} s with text and build)")
+    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "backstep"))
     stats = run["engine"].stats
     if stats["wide_lanes"] <= 0 or stats["redis_lanes"] <= 0:
         raise AssertionError(f"the GRCh38-shaped path took no wide or no re-dispatched lane: {stats}")
     t0 = time.perf_counter()
-    checks = check_grch38(run, rng)
-    log(f"phase 8 GRCh38 correctness: {checks} ({time.perf_counter() - t0:.3f} s)")
-    log("phase 9 GRCh38 report:")
+    checks = check_records(run, rng)
+    log(f"phase 11 GRCh38 correctness: {checks} ({time.perf_counter() - t0:.3f} s)")
+    log("phase 12 GRCh38 report:")
     paths["grch38"] = report("grch38", run, device) | {"checks": checks}
     paths["grch38"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
     run["engine"].release()
@@ -762,16 +1097,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Times of window_read and occ_pair come from the chr1 path (slice 1's
-    # numbers stay comparable), backstep's from the GRCh38-shaped path;
-    # launches add up over both paths.
+    # numbers stay comparable), backstep's from the GRCh38-shaped path, occ's
+    # from the chr20-shaped k-mer build; launches add up over all paths.
+    times_from = {"window_read": "chr1", "occ_pair": "chr1", "backstep": "grch38", "occ": "chr20"}
     kernels_line = []
     for name in KERNELS:
-        path = "chr1" if name in paths["chr1"]["per_kernel"] else "grch38"
+        path = times_from[name]
         agg = paths[path]["per_kernel"][name]
+        # Phase 3's inputs and every main-path call checked in the reports.
+        errs = [v["max_abs_err"] for key, v in exact.items() if key.split(":")[0] == name]
+        errs += [p["checked_vs_plain"][name]["max_abs_err"] for p in paths.values() if name in p["checked_vs_plain"]]
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(p["launches"][name] for p in paths.values()),
-            "max_abs_err": max(v["max_abs_err"] for key, v in exact.items() if key.startswith(name)),
+            "max_abs_err": max(errs),
             "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": "bytes" if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / INT32_OPS_PER_S else "operations",
             "library_ms": agg["library_ms"], "times_from_path": path,

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from awry_tpu_torch import Alphabet, FmBuildArgs, build_from_records
-from awry_tpu_torch.ops import kernels, lf_walk, to_device
+from awry_tpu_torch.ops import FmQueryEngine, kernels, lf_walk, populate_kmer_table_device, to_device
 
 
 @pytest.fixture
@@ -90,3 +90,58 @@ def test_lf_walk_mark4_matches_cpu(card):
     assert kernels.backstep.launches == n0 + 4
     want = lf_walk(to_device(index, "cpu"), torch.from_numpy(rows))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+def test_occ_matches_plain(card, alphabet):
+    tdev, rng = _device_index(alphabet, 60_000, 5)
+    blocks, codes = tdev.blocks.to(card), tdev.codes.to(card)
+    n = tdev.bwt_len
+    pos = torch.from_numpy(np.concatenate([[0, n - 1, 255, 256, n + 300, -4], rng.integers(0, n, size=4093)])).to(card)
+    sym = torch.from_numpy(rng.integers(-1, alphabet.cardinality + 1, size=4099).astype(np.int32)).to(card)
+    n0 = kernels.occ.launches
+    got = kernels.occ(blocks, pos, sym, codes, tdev.num_planes)
+    assert kernels.occ.launches == n0 + 1
+    assert torch.equal(got, kernels.occ_plain(blocks, pos, sym, codes, tdev.num_planes))
+
+
+@pytest.mark.cuda
+def test_device_kmer_build_matches_cpu(card):
+    """The k-mer table built on the card through occ equals the CPU build
+    and the host counting table, and the builder flag builds it on cuda:0."""
+    rng = np.random.default_rng(6)
+    seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=60_000))
+    records = [("a", seq[:45_000] + b"N" * 20 + seq[45_000:])]
+    index = build_from_records(records, FmBuildArgs(lookup_table_kmer_len=6, locate_mark_ratio=1))
+    n0 = kernels.occ.launches
+    got = populate_kmer_table_device(to_device(index, card, minimal=True), 6)
+    assert kernels.occ.launches > n0
+    np.testing.assert_array_equal(got, populate_kmer_table_device(to_device(index, "cpu", minimal=True), 6))
+    np.testing.assert_array_equal(got, index.kmer_table)
+    built = build_from_records(
+        records, FmBuildArgs(lookup_table_kmer_len=6, locate_mark_ratio=1, build_kmer_table_on_device=True)
+    )
+    np.testing.assert_array_equal(built.kmer_table, index.kmer_table)
+
+
+@pytest.mark.cuda
+def test_slot_engine_matches_cpu(card):
+    """The slot regime on the card (window_read over the fat rows) gives the
+    CPU engine's answers, fat rows and all."""
+    rng = np.random.default_rng(7)
+    seq = bytearray(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=50_000))
+    for r in range(3):
+        seq[5_000 + 4_000 * r : 5_060 + 4_000 * r] = seq[1_000:1_060]
+    seq = bytes(seq)
+    index = build_from_records([("s", seq)], FmBuildArgs(lookup_table_kmer_len=8, locate_mark_ratio=1))
+    on_card, on_cpu = FmQueryEngine(index, device=card), FmQueryEngine(index, device="cpu")
+    assert on_card._verify_slots and on_cpu._verify_slots
+    assert torch.equal(on_card.device_index.vw_flat.cpu(), on_cpu.device_index.vw_flat)
+    queries = [seq[s : s + 25] for s in rng.integers(0, len(seq) - 25, size=3000)]
+    queries += [seq[1_010:1_035], seq[10:14] * 3, b"ACGTNACGTNAC", b"AC", b"", seq[100:108]]
+    n0 = kernels.window_read.launches
+    got = on_card.count_locate_arrays(queries, cap=2)
+    assert kernels.window_read.launches > n0
+    for x, y in zip(got, on_cpu.count_locate_arrays(queries, cap=2)):
+        np.testing.assert_array_equal(x, y)
