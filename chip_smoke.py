@@ -11,9 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, exactly, at main-path shapes: window_read (k = 1, 2, 3, and k = 4
    over 4 slots per lane) over a 1 GB SA-sized table, occ_pair and backstep
-   over chr1-sized nucleotide rows and Swiss-Prot-sized amino rows, occ
-   over them at the k-mer build's full chunk (positions and rows include
-   0, the last row, block edges and rows past either end).  Each path's
+   over chr1-sized nucleotide rows and Swiss-Prot-sized amino rows (occ_pair
+   on random pairs and on the serving shape, ~98 % of pairs in one block),
+   occ over them at the k-mer build's full chunk, on random positions and in
+   the build's sorted order (positions and rows include 0, the last row,
+   block edges and rows past either end).  Each path's
    report (phases 6, 9 and 12) also holds every kernel call the path made
    on its first batch (and the k-mer build's full chunk) against the plain
    version on the same inputs.
@@ -250,26 +252,47 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         nb = -(-(symbols + 1) // 256)
         blocks = random_words((nb, rw), device, gen)
         codes = torch.from_numpy(index_to_code_table(alphabet).astype(np.int32)).to(device)
+        sym = torch.randint(0, alphabet.cardinality, (BATCH,), dtype=torch.int32, device=device, generator=gen)
+        # occ_pair: random pairs (mostly in two blocks), then the serving
+        # shape: ranges of 0-7 rows (~98 % of pairs in one block) and a
+        # quarter of the lanes inactive at (1, 0).
         pos_a = torch.randint(-1, nb * 256, (BATCH,), device=device, generator=gen)
         pos_b = (pos_a + torch.randint(0, 600, (BATCH,), device=device, generator=gen)).clamp_max(nb * 256 - 1)
-        sym = torch.randint(0, alphabet.cardinality, (BATCH,), dtype=torch.int32, device=device, generator=gen)
-        got = kernels.occ_pair(blocks, pos_a, pos_b, sym, codes, alphabet.num_planes)
-        want = kernels.occ_pair_plain(blocks, pos_a, pos_b, sym, codes, alphabet.num_planes)
-        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-        if err != 0:
-            raise AssertionError(f"occ_pair ({alphabet.name}) disagrees with its plain version (max abs err {err})")
-        out[f"occ_pair:{alphabet.name.lower()}"] = {"requests": BATCH, "rows": nb, "row_words": rw, "max_abs_err": err}
+        serving_b = (pos_a + torch.randint(0, 8, (BATCH,), device=device, generator=gen)).clamp_max(nb * 256 - 1)
+        idle = torch.rand(BATCH, device=device, generator=gen) < 0.25
+        serving = (torch.where(idle, 0, pos_a), torch.where(idle, 0, serving_b))
+        for key, (pa, pb) in ((f"occ_pair:{alphabet.name.lower()}", (pos_a, pos_b)),
+                              (f"occ_pair:{alphabet.name.lower()}:same_block", serving)):
+            got = kernels.occ_pair(blocks, pa, pb, sym, codes, alphabet.num_planes)
+            want = kernels.occ_pair_plain(blocks, pa, pb, sym, codes, alphabet.num_planes)
+            err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            if err != 0:
+                raise AssertionError(f"{key} disagrees with its plain version (max abs err {err})")
+            same = float(((pa.clamp(0, nb * 256 - 1) >> 8) == (pb.clamp(0, nb * 256 - 1) >> 8)).float().mean())
+            out[key] = {"requests": BATCH, "rows": nb, "row_words": rw, "same_block_share": same, "max_abs_err": err}
 
         # occ: positions 0, the last row (bwt_len - 1 = symbols), block
-        # edges, past either end, then random ones; symbols past the alphabet.
+        # edges, past either end, then random ones; symbols past the alphabet
+        # (each CTA's span too wide to stage: the direct branch).  Then the
+        # k-mer build's order (staged spans): each half of the chunk holds 4
+        # symbol runs, positions rising within each run about 32 apart (the
+        # chr20 build's level-11 chunk: 61, level 12: 15), the second half's
+        # positions 1-8 above the first's.
         edges = torch.tensor([0, symbols, 255, 256, nb * 256 - 1, nb * 256 + 7, -3], device=device)
         pos = torch.cat([edges, torch.randint(-1, nb * 256 + 8, (chunk - edges.shape[0],), device=device, generator=gen)])
         osym = torch.randint(-1, alphabet.cardinality + 1, (chunk,), dtype=torch.int32, device=device, generator=gen)
-        err = max_abs_err(kernels.occ(blocks, pos, osym, codes, alphabet.num_planes),
-                          kernels.occ_plain(blocks, pos, osym, codes, alphabet.num_planes))
-        if err != 0:
-            raise AssertionError(f"occ ({alphabet.name}) disagrees with its plain version (max abs err {err})")
-        out[f"occ:{alphabet.name.lower()}"] = {"requests": chunk, "rows": nb, "row_words": rw, "max_abs_err": err}
+        span = min(nb * 256, chunk // 8 * 32)
+        runs = torch.randint(-1, span, (4, chunk // 8), device=device, generator=gen).sort(dim=1).values.reshape(-1)
+        run_sym = torch.randint(1, alphabet.cardinality, (4,), dtype=torch.int32, device=device, generator=gen)
+        run_sym = run_sym.sort().values.repeat_interleave(chunk // 8)
+        sorted_pos = torch.cat([runs, runs + 1 + torch.randint(0, 8, runs.shape, device=device, generator=gen)])
+        for key, (p, s) in ((f"occ:{alphabet.name.lower()}", (pos, osym)),
+                            (f"occ:{alphabet.name.lower()}:sorted", (sorted_pos, torch.cat([run_sym, run_sym])))):
+            err = max_abs_err(kernels.occ(blocks, p, s, codes, alphabet.num_planes),
+                              kernels.occ_plain(blocks, p, s, codes, alphabet.num_planes))
+            if err != 0:
+                raise AssertionError(f"{key} disagrees with its plain version (max abs err {err})")
+            out[key] = {"requests": chunk, "rows": nb, "row_words": rw, "max_abs_err": err}
 
         # backstep: rows 0, the last row (bwt_len - 1 = symbols), past the
         # end and below 0, then random rows.
@@ -285,7 +308,7 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         if err != 0:
             raise AssertionError(f"backstep ({alphabet.name}) disagrees with its plain version (max abs err {err})")
         out[f"backstep:{alphabet.name.lower()}"] = {"requests": reqs, "rows": nb, "row_words": rw, "max_abs_err": err}
-        del blocks, pos_a, pos_b, sym, pos, osym, rows, got, want
+        del blocks, pos_a, pos_b, serving_b, serving, sym, pos, osym, runs, sorted_pos, rows, got, want
     return out
 
 

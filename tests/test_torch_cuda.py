@@ -44,15 +44,39 @@ def test_window_read_matches_plain(card):
     assert empty.shape == (0, 2)
 
 
+def _pairs(kind: str, n: int, rng, size: int = 4099):
+    """occ_pair endpoints (pos_a, pos_b) over a table of n positions."""
+    if kind == "random":
+        pos_a = rng.integers(-1, n, size=size)
+        return pos_a, np.minimum(pos_a + rng.integers(0, 300, size=size), n - 1)
+    if kind == "same_block":  # ranges of ~1.5 rows: ~99 % of pairs in one block, as in serving
+        pos_a = rng.integers(-1, n, size=size)
+        return pos_a, np.minimum(pos_a + rng.integers(0, 4, size=size), n - 1)
+    if kind == "cross_block":  # every pair in two blocks
+        pos_a = rng.integers(-1, n - 512, size=size)
+        return pos_a, (np.maximum(pos_a, 0) | 255) + 1 + rng.integers(0, 256, size=size)
+    # edges: pos_a = -1, the 255/256 block edge, the last row, past the end
+    last = n - 1
+    pairs = [(-1, 0), (-1, 255), (-1, 256), (255, 256), (255, 255), (256, 511), (0, 255), (511, 512),
+             (last, last), (last - 1, last), (-1, last), (last, last + 40), ((last & ~255) - 1, last)]
+    pairs += [(a, b) for a, b in zip(range(-1, 600), range(255, 856))]
+    return np.array([a for a, _ in pairs]), np.array([b for _, b in pairs])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
-def test_occ_pair_matches_plain(card, alphabet):
+@pytest.mark.parametrize("pairs", ["random", "same_block", "cross_block", "edges"])
+def test_occ_pair_matches_plain(card, alphabet, pairs):
+    """occ_pair equals its plain version on random pairs, on pairs nearly
+    all in one block (one row read), all in two blocks, and at the edges."""
     tdev, rng = _device_index(alphabet, 60_000, 2)
     blocks, codes = tdev.blocks.to(card), tdev.codes.to(card)
-    n = tdev.bwt_len
-    pos_a = torch.from_numpy(rng.integers(-1, n, size=4099)).to(card)
-    pos_b = (pos_a + torch.from_numpy(rng.integers(0, 300, size=4099)).to(card)).clamp_max(n - 1)
-    sym = torch.from_numpy(rng.integers(0, alphabet.cardinality, size=4099).astype(np.int32)).to(card)
+    pa, pb = _pairs(pairs, tdev.bwt_len, rng)
+    pos_a, pos_b = torch.from_numpy(pa).to(card), torch.from_numpy(pb).to(card)
+    nbits = blocks.shape[0] * 256
+    same = ((pos_a.clamp(0, nbits - 1) >> 8) == (pos_b.clamp(0, nbits - 1) >> 8)).float().mean()
+    assert {"same_block": same > 0.95, "cross_block": same == 0}.get(pairs, True)
+    sym = torch.from_numpy(rng.integers(0, alphabet.cardinality, size=pa.shape[0]).astype(np.int32)).to(card)
     n0 = kernels.occ_pair.launches
     got = kernels.occ_pair(blocks, pos_a, pos_b, sym, codes, tdev.num_planes)
     assert kernels.occ_pair.launches == n0 + 1
@@ -92,18 +116,58 @@ def test_lf_walk_mark4_matches_cpu(card):
     assert torch.equal(got.cpu(), want)
 
 
+def _build_chunk(alphabet, card):
+    """The last occ request batch of the device k-mer build of a small index
+    (k = 7 nucleotide, 4 amino: every CTA's span is a few rows)."""
+    letters = b"ACGT" if alphabet is Alphabet.NUCLEOTIDE else b"ACDEFGHIKLMNPQRSTVWY"
+    k = 7 if alphabet is Alphabet.NUCLEOTIDE else 4
+    rng = np.random.default_rng(8)
+    seq = bytes(rng.choice(np.frombuffer(letters, dtype=np.uint8), size=60_000))
+    index = build_from_records([("x", seq)], FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=k, locate_mark_ratio=1))
+    calls = []
+    real = kernels.occ
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    kernels.occ = recording
+    try:
+        populate_kmer_table_device(to_device(index, "cpu", minimal=True), k)
+    finally:
+        kernels.occ = real
+    blocks, pos, sym, codes, nplanes = calls[-1]
+    return blocks.to(card), pos.to(card), sym.to(card), codes.to(card), nplanes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
-def test_occ_matches_plain(card, alphabet):
+@pytest.mark.parametrize("positions", ["random", "build_chunk", "straddle"])
+def test_occ_matches_plain(card, alphabet, positions):
+    """occ equals its plain version on random positions (the direct
+    branch), on a real k-mer build chunk (the staged branch) and on sorted
+    positions whose gaps grow from 1 to 250, so that the tiles' spans run
+    from a few rows to about a thousand, across the stage limit."""
     tdev, rng = _device_index(alphabet, 60_000, 5)
-    blocks, codes = tdev.blocks.to(card), tdev.codes.to(card)
-    n = tdev.bwt_len
-    pos = torch.from_numpy(np.concatenate([[0, n - 1, 255, 256, n + 300, -4], rng.integers(0, n, size=4093)])).to(card)
-    sym = torch.from_numpy(rng.integers(-1, alphabet.cardinality + 1, size=4099).astype(np.int32)).to(card)
+    codes, nplanes = tdev.codes.to(card), tdev.num_planes
+    if positions == "build_chunk":
+        blocks, pos, sym, codes, nplanes = _build_chunk(alphabet, card)
+    elif positions == "straddle":
+        nb = 20_000
+        blocks = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(nb, tdev.blocks.shape[1])).astype(np.int32)).to(card)
+        gaps = np.linspace(1, 250, 30_000).astype(np.int64)
+        pos = torch.from_numpy(np.cumsum(gaps) - 1).to(card)
+        assert int(pos[-1]) < nb * 256
+        sym = torch.from_numpy(rng.integers(0, alphabet.cardinality, size=gaps.shape[0]).astype(np.int32)).to(card)
+    else:
+        blocks = tdev.blocks.to(card)
+        n = tdev.bwt_len
+        pos = torch.from_numpy(np.concatenate([[0, n - 1, 255, 256, n + 300, -4], rng.integers(0, n, size=4093)])).to(card)
+        sym = torch.from_numpy(rng.integers(-1, alphabet.cardinality + 1, size=4099).astype(np.int32)).to(card)
     n0 = kernels.occ.launches
-    got = kernels.occ(blocks, pos, sym, codes, tdev.num_planes)
+    got = kernels.occ(blocks, pos, sym, codes, nplanes)
     assert kernels.occ.launches == n0 + 1
-    assert torch.equal(got, kernels.occ_plain(blocks, pos, sym, codes, tdev.num_planes))
+    assert torch.equal(got, kernels.occ_plain(blocks, pos, sym, codes, nplanes))
 
 
 @pytest.mark.cuda
