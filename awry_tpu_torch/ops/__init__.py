@@ -8,7 +8,18 @@ from .device_index import (
     to_device,
 )
 from .engine import FmQueryEngine
-from .kernels import backstep, backstep_plain, occ, occ_pair, occ_pair_plain, occ_plain, window_read, window_read_plain
+from .kernels import (
+    backstep,
+    backstep_plain,
+    marked_walk,
+    marked_walk_plain,
+    occ,
+    occ_pair,
+    occ_pair_plain,
+    occ_plain,
+    window_read,
+    window_read_plain,
+)
 from .kmer import populate_kmer_table_device
 from .locate import count_locate_capped_t, lf_walk
 from .rank import backstep_mark, occurrence, occurrence_plain, seed_range, symbol_at, update_range
@@ -31,6 +42,8 @@ __all__ = [
     "from_numpy_index",
     "fused_row_words",
     "lf_walk",
+    "marked_walk",
+    "marked_walk_plain",
     "occ",
     "occ_pair",
     "occ_pair_plain",

@@ -1,7 +1,7 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, the nvcc
 build and the ctypes binding.
 
-Four kernels (sources under ``csrc/``, each with a note on the TPU kernel
+Five kernels (sources under ``csrc/``, each with a note on the TPU kernel
 it replaces, its bound and its design):
 
 * ``window_read(flat, wbase, k)`` - ``words[i, j] = flat[clamp(wbase[i],
@@ -15,10 +15,19 @@ it replaces, its bound and its design):
 * ``backstep(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset,
   ambiguity_idx)`` - one marked-walk visit per row: the LF-stepped row and
   the packed (mark_rank << 1) | mark_bit.
+* ``marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes,
+  mark_offset, ambiguity_idx, mark_ratio, sampled_sa, bwt_len)`` - the
+  whole marked LF walk of each row to its text position in one launch
+  (``backstep``'s per-row code; the locate walk at mark ratio > 1).
 
 Tables are int32 tensors holding uint32 bit patterns; positions are int64;
 outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``), but
-for backstep's stepped rows, which are int64 positions.
+for backstep's stepped rows and marked_walk's text positions, which are
+int64 positions.
+
+``chip_smoke.py`` holds every kernel against its plain version on the card;
+``scripts/rank_kernel_study.py --kernels window_read,marked_walk`` (or
+``occ_pair,occ``) times them against other builds of their sources.
 
 A wrapper takes its plain version only when its inputs are CPU tensors; on
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -126,6 +135,8 @@ def _lib():
             lib.awry_occ.argtypes = [i32, p, i64, i32, i32, i32, p, p, p, i64, p, p]
             lib.awry_backstep.restype = i32
             lib.awry_backstep.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, p, i64, p, p, p]
+            lib.awry_marked_walk.restype = i32
+            lib.awry_marked_walk.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, i32, p, i64, i64, p, i64, p, p]
             _lib_handle = lib
         return _lib_handle
 
@@ -363,18 +374,10 @@ def backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_off
     return torch.where(sentinel, 0, stepped), as_int32_bits(packed)
 
 
-def backstep(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int):
-    """(int64[R], int32[R]): the LF-stepped row (0 for sentinel rows, whose
-    rank uses ``ambiguity_idx``) and ``(mark_rank << 1) | mark_bit`` as a
-    uint32 bit pattern, from one read of each row.
-
-    blocks: int32[num_blocks, row_words] fused rows, with the 8 mark words
-    at ``mark_offset`` (even) and the mark milestone after them; rows:
-    int64[R] (clamped into the table); prefix_sums: int64[cardinality + 1];
-    codes: int32[cardinality] symbol -> occurrence code; c2i:
-    int32[2**nplanes] code -> symbol; nplanes: 3 (nucleotide) or 5 (amino)."""
-    if _on_cpu(blocks, rows, prefix_sums, codes, c2i):
-        return backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+def _check_walk_args(kernel: str, blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                     ambiguity_idx: int) -> None:
+    """The checks backstep and marked_walk share: dtypes and a fused row
+    layout with the mark words where the kernel's uint2 loads read them."""
     _check("blocks", blocks, torch.int32, 2)
     for name, t, dt in (("rows", rows, torch.int64), ("prefix_sums", prefix_sums, torch.int64),
                         ("codes", codes, torch.int32), ("c2i", c2i, torch.int32)):
@@ -388,17 +391,32 @@ def backstep(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: i
         or not 0 < ambiguity_idx < card
     ):
         raise ValueError(
-            f"backstep: bad row layout (row_words={row_words}, nplanes={nplanes}, card={card}, "
+            f"{kernel}: bad row layout (row_words={row_words}, nplanes={nplanes}, card={card}, "
             f"mark_offset={mark_offset}, ambiguity_idx={ambiguity_idx})"
         )
     if blocks.data_ptr() % 16:
-        raise ValueError("backstep: blocks must be 16-byte aligned (uint4 loads)")
+        raise ValueError(f"{kernel}: blocks must be 16-byte aligned (uint4 loads)")
+
+
+def backstep(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int):
+    """(int64[R], int32[R]): the LF-stepped row (0 for sentinel rows, whose
+    rank uses ``ambiguity_idx``) and ``(mark_rank << 1) | mark_bit`` as a
+    uint32 bit pattern, from one read of each row.
+
+    blocks: int32[num_blocks, row_words] fused rows, with the 8 mark words
+    at ``mark_offset`` (even) and the mark milestone after them; rows:
+    int64[R] (clamped into the table); prefix_sums: int64[cardinality + 1];
+    codes: int32[cardinality] symbol -> occurrence code; c2i:
+    int32[2**nplanes] code -> symbol; nplanes: 3 (nucleotide) or 5 (amino)."""
+    if _on_cpu(blocks, rows, prefix_sums, codes, c2i):
+        return backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+    _check_walk_args("backstep", blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
     r = rows.shape[0]
     stepped = torch.empty(r, dtype=torch.int64, device=blocks.device)
     mark = torch.empty(r, dtype=torch.int32, device=blocks.device)
     if r:
         rc = _lib().awry_backstep(
-            blocks.device.index, blocks.data_ptr(), blocks.shape[0], row_words, nplanes,
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
             prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), mark_offset, ambiguity_idx,
             rows.data_ptr(), r, stepped.data_ptr(), mark.data_ptr(), _stream(blocks.device),
         )
@@ -408,3 +426,79 @@ def backstep(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: i
 
 
 backstep.launches = 0
+
+
+# -- marked_walk ---------------------------------------------------------------
+
+
+def _text_pos_mod(sa_vals: torch.Tensor, steps: torch.Tensor, bwt_len: int) -> torch.Tensor:
+    """(sa_vals + steps) % bwt_len for operands below bwt_len (int64: one
+    conditional subtraction, no wraparound)."""
+    t = sa_vals + steps
+    return torch.where(t >= bwt_len, t - bwt_len, t)
+
+
+def walk_by_visits(visit, read, blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                   ambiguity_idx: int, mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """The marked walk as mark_ratio one-visit calls of ``visit`` (backstep
+    or its plain version), lanes freezing once marked, then one k=1 ``read``
+    (window_read or its plain version) of the marked SA at the final row's
+    mark rank: marked_walk's function, composed."""
+    args = (prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+    pos = rows
+    steps = torch.zeros_like(rows)
+    done = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+    for _ in range(mark_ratio - 1):
+        stepped, packed = visit(blocks, pos, *args)
+        done |= (packed & 1) == 1
+        pos = torch.where(done, pos, stepped)
+        steps += (~done).to(torch.int64)
+    # Final visit: the row is marked (or the walk hit its bound); its mark
+    # rank indexes the marked SA values.  k=1 reads index 0 exactly.
+    _, packed = visit(blocks, pos, *args)
+    mark_rank = (packed.to(torch.int64) & _FULL) >> 1
+    sa_vals = read(sampled_sa, mark_rank, 1)[:, 0].to(torch.int64) & _FULL
+    return _text_pos_mod(sa_vals, steps, bwt_len)
+
+
+def marked_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int,
+                      mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """Plain version of marked_walk: the walk by visits of backstep_plain,
+    then window_read_plain k=1."""
+    return walk_by_visits(backstep_plain, window_read_plain, blocks, rows, prefix_sums, codes, c2i, nplanes,
+                          mark_offset, ambiguity_idx, mark_ratio, sampled_sa, bwt_len)
+
+
+def marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int,
+                mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """int64[R]: the text position of each BWT row by the marked LF walk.
+
+    Up to ``mark_ratio - 1`` LF steps per row (sentinel rows step to 0),
+    stopping at the first marked row; then ``sa = sampled_sa[mark_rank]``
+    at the final row (31 bits of the rank, as backstep packs it; clamped
+    into the table) and ``sa + steps``, less ``bwt_len`` when that reaches
+    it.  blocks .. ambiguity_idx as for backstep; sampled_sa: int32[S] the
+    SA values of the marked rows in row order (uint32 bit patterns);
+    bwt_len: the BWT's length."""
+    if _on_cpu(blocks, rows, prefix_sums, codes, c2i, sampled_sa):
+        return marked_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx,
+                                 mark_ratio, sampled_sa, bwt_len)
+    _check_walk_args("marked_walk", blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+    _check("sampled_sa", sampled_sa, torch.int32, 1)
+    if mark_ratio < 1 or sampled_sa.shape[0] < 1 or bwt_len < 1:
+        raise ValueError(f"marked_walk: mark_ratio={mark_ratio}, {sampled_sa.shape[0]} SA values, bwt_len={bwt_len}")
+    r = rows.shape[0]
+    out = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    if r:
+        rc = _lib().awry_marked_walk(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
+            prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), mark_offset, ambiguity_idx, mark_ratio,
+            sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len, rows.data_ptr(), r, out.data_ptr(),
+            _stream(blocks.device),
+        )
+        _launch_check(rc, "marked_walk")
+        marked_walk.launches += 1
+    return out
+
+
+marked_walk.launches = 0

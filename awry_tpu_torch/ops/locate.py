@@ -4,11 +4,11 @@ Rows whose SA value is a multiple of the mark ratio are marked (mark words
 and a mark milestone ride in the fused block rows), and ``text_sampled_sa``
 holds the SA values of the marked rows in row order.  Walking back one LF
 step lowers the text position by one, so a marked row is reached within
-``mark_ratio - 1`` steps: a fixed bound, so the walk is a fixed number of
-``backstep`` launches, lanes freezing once marked, then one read of the
-marked SA value at the final row's mark rank (awry_tpu/ops/locate.py
-_marked_walk, sweep.py marked_walk_sweep).  At mark ratio 1 every row is
-marked and the mark rank is the row: the walk is one SA read.
+``mark_ratio - 1`` steps: the walk is one ``marked_walk`` launch, each row
+walked to its mark by one thread, which then reads the marked SA value at
+the final row's mark rank (awry_tpu/ops/locate.py _marked_walk, sweep.py
+marked_walk_sweep).  At mark ratio 1 every row is marked and the mark rank
+is the row: the walk is one SA read.
 
 Ragged per-query outputs are two-phase: counts -> offsets -> flat fill.
 """
@@ -19,36 +19,19 @@ import torch
 
 from . import kernels
 from .device_index import FmDeviceIndex
-from .rank import backstep_mark
 from .search import counts_from_ranges, search_ranges_t
 
 _FULL = 0xFFFFFFFF
-
-
-def _text_pos_mod(sa_vals: torch.Tensor, steps: torch.Tensor, bwt_len: int) -> torch.Tensor:
-    """(sa_vals + steps) % bwt_len for operands below bwt_len (int64: one
-    conditional subtraction, no wraparound)."""
-    t = sa_vals + steps
-    return torch.where(t >= bwt_len, t - bwt_len, t)
 
 
 def lf_walk(dev: FmDeviceIndex, rows: torch.Tensor) -> torch.Tensor:
     """int64 text position of each BWT row (int64[N] rows)."""
     if dev.mark_ratio == 1:
         return kernels.window_read(dev.text_sampled_sa, rows, 2)[:, 0].to(torch.int64) & _FULL
-    pos = rows
-    steps = torch.zeros_like(rows)
-    done = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
-    for _ in range(dev.mark_ratio - 1):
-        stepped, marked, _ = backstep_mark(dev, pos)
-        done |= marked
-        pos = torch.where(done, pos, stepped)
-        steps += (~done).to(torch.int64)
-    # Final visit: the row is marked (or the walk hit its bound); its mark
-    # rank indexes the marked SA values.  k=1 reads index 0 exactly.
-    _, _, mark_rank = backstep_mark(dev, pos)
-    sa_vals = kernels.window_read(dev.text_sampled_sa, mark_rank, 1)[:, 0].to(torch.int64) & _FULL
-    return _text_pos_mod(sa_vals, steps, dev.bwt_len)
+    return kernels.marked_walk(
+        dev.blocks, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.mark_offset,
+        dev.alphabet.ambiguity_idx, dev.mark_ratio, dev.text_sampled_sa, dev.bwt_len,
+    )
 
 
 def count_locate_capped_t(

@@ -3,9 +3,10 @@
 Occ(pos, sym) = count of sym in BWT[0..=pos]: the block's milestone for
 sym plus an inclusive masked popcount of the AND over XOR-polarity planes.
 The LF range update ranks both endpoints through the ``occ_pair`` kernel;
-a batch of single ranks (the device k-mer build) goes through ``occ``; the
-LF step of single rows (the marked walk's visit) goes through the
-``backstep`` kernel.  Positions, ranges and counts are int64; symbols int32.
+a batch of single ranks (the device k-mer build) goes through ``occ``; one
+LF step of single rows with their mark bit and mark rank goes through the
+``backstep`` kernel (the locate walk runs ``marked_walk``, ops/locate.py).
+Positions, ranges and counts are int64; symbols int32.
 """
 
 from __future__ import annotations

@@ -9,13 +9,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles the CUDA kernels from awry_tpu_torch/csrc/ (nvcc, one
    process per source, all started together) into awry_tpu_torch/_build/.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card, exactly, at main-path shapes: window_read (k = 1, 2, 3, and k = 4
-   over 4 slots per lane) over a 1 GB SA-sized table, occ_pair and backstep
-   over chr1-sized nucleotide rows and Swiss-Prot-sized amino rows (occ_pair
-   on random pairs and on the serving shape, ~98 % of pairs in one block),
-   occ over them at the k-mer build's full chunk, on random positions and in
-   the build's sorted order (positions and rows include 0, the last row,
-   block edges and rows past either end).  Each path's
+   card, exactly, at main-path shapes: window_read (k = 1, 2, 3, 15, k = 4
+   over 4 slots per lane, and k = 5, which has no kernel of its own) over a
+   1 GB SA-sized table, occ_pair, backstep and marked_walk (marks 2, 4 and
+   32, over a random marked SA) over chr1-sized nucleotide rows and
+   Swiss-Prot-sized amino rows (occ_pair on random pairs and on the serving
+   shape, ~98 % of pairs in one block), occ over them at the k-mer build's
+   full chunk, on random positions and in the build's sorted order
+   (positions and rows include 0, the last row, block edges and rows past
+   either end).  Each path's
    report (phases 6, 9 and 12) also holds every kernel call the path made
    on its first batch (and the k-mer build's full chunk) against the plain
    version on the same inputs.
@@ -32,9 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    between host encode, serving from the wire and the device (profiler);
    every kernel call of the path's first batch, recorded, held exactly
    against its plain version; per-kernel device times (CUDA events, L2
-   flushed before each launch) at the shapes the path gave each kernel,
+   flushed before each launch by a read of 128 MB, and again under the
+   earlier flush that wrote it) at the shapes the path gave each kernel,
    beside the plain version, one torch indexing call (window_read only) and
-   the bound from bytes moved.
+   the bound from bytes moved; two plain reads of known size under both
+   flushes, the flushes' yardstick.
    The chr1 engine is then released and the card's cache emptied.
 7. chr20-shaped path (bench.py chr20_64Mbp_dna: 64 Mbp, k = 13, mark ratio
    1, SA ratio 8, 30 bp reads, batches of 524,288; seeded random ACGT in one
@@ -66,12 +70,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    reads drawn from record interiors plus a 512-read batch (random reads,
    reads of both repeats, reads right after a leading N run, drawn reads),
    served through count_locate_stream with the counts set to 0 just
-   before.  Every locate walks the marked LF walk through backstep.
+   before.  Every locate walks the marked LF walk in one marked_walk
+   launch; the path launches no backstep.
 11. GRCh38 correctness, per record: every hit spells its query in its
    record, every drawn read (and every planted copy of a repeat read) is
    found at its own (record, local), 64 counts equal a naive scan, and the
    12x repeat reads report 12 hits (or more, confirmed by naive scan).
-12. GRCh38 report: as phase 6, with the walk visits' backstep times.
+12. GRCh38 report: as phase 6, with the walks' marked_walk times, each
+   beside its bound from the sectors its rows' walks touch, and backstep
+   timed as one visit over each walk's rows.
 
 The last three lines are the card's name and power limit, the kernels JSON
 and {"ok": true, "device": {...}}.  ``--record PATH`` also writes the full
@@ -141,16 +148,20 @@ GRCH38_NAMES = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > 2x the 50 MB L2
-KERNELS = ("window_read", "occ_pair", "backstep", "occ")
-SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS} | {"occ": "awry_tpu_torch/csrc/occ_pair.cu"}
+KERNELS = ("window_read", "occ_pair", "backstep", "occ", "marked_walk")
+SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS} | {
+    "occ": "awry_tpu_torch/csrc/occ_pair.cu", "marked_walk": "awry_tpu_torch/csrc/backstep.cu",
+}
 REPLACES = {
     "window_read": "awry_tpu/ops/sweep.py:1036",  # _anchored_text_kernel
     "occ_pair": "awry_tpu/ops/sweep.py:1084",  # _occ_pair_pay_kernel_anchored (and :1062)
-    "backstep": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored
+    "backstep": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored, one visit (backstep_mark_sweep)
     "occ": "awry_tpu/ops/sweep.py:1108",  # _occ_kernel_anchored (and :291)
+    "marked_walk": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored through marked_walk_sweep (:883)
 }
 # Arguments of each kernel that carry per-request data (recorded as copies).
-REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2)}
+REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2), "marked_walk": (1,)}
+WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for marked_walk
 LETTERS = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
@@ -238,8 +249,9 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
     out = {}
     reqs = BATCH + BATCH // 4  # the walk's rows per verify batch (B + 4 slots per wide group)
     table = random_words((N_SYMBOLS + 1,), device, gen)
-    # k = 4 over WIDE_CAP slots per lane: the slot regime's fat-row read.
-    for k, n in ((1, reqs), (2, reqs), (3, reqs), (4, WIDE_CAP * BATCH)):
+    # k = 4 over WIDE_CAP slots per lane: the slot regime's fat-row read;
+    # k = 15: the 100 bp text window; k = 5: a width with no kernel of its own.
+    for k, n in ((1, reqs), (2, reqs), (3, reqs), (4, WIDE_CAP * BATCH), (15, reqs + 1), (5, reqs + 3)):
         wbase = torch.randint(-8, table.shape[0] + 8, (n,), device=device, generator=gen)
         err = max_abs_err(kernels.window_read(table, wbase, k), kernels.window_read_plain(table, wbase, k))
         if err != 0:
@@ -308,6 +320,20 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         if err != 0:
             raise AssertionError(f"backstep ({alphabet.name}) disagrees with its plain version (max abs err {err})")
         out[f"backstep:{alphabet.name.lower()}"] = {"requests": reqs, "rows": nb, "row_words": rw, "max_abs_err": err}
+
+        # marked_walk on the same rows: random mark bits stop half the lanes
+        # at each visit; random prefix sums step rows past either end.
+        for mark in WALK_MARKS:
+            sa = random_words((-(-(symbols + 1) // mark),), device, gen)
+            walk = (*args, mark, sa, symbols + 1)
+            err = max_abs_err(kernels.marked_walk(*walk), kernels.marked_walk_plain(*walk))
+            if err != 0:
+                raise AssertionError(f"marked_walk ({alphabet.name}, mark {mark}) disagrees with its plain version "
+                                     f"(max abs err {err})")
+            out[f"marked_walk:{alphabet.name.lower()}:mark{mark}"] = {
+                "requests": reqs, "rows": nb, "row_words": rw, "sa_words": sa.shape[0], "max_abs_err": err,
+            }
+            del sa
         del blocks, pos_a, pos_b, serving_b, serving, sym, pos, osym, runs, sorted_pos, rows, got, want
     return out
 
@@ -716,14 +742,29 @@ def check_records(run: dict, rng: np.random.Generator) -> dict:
 # -- reports -------------------------------------------------------------------
 
 
-def time_ms(fn, device, reps: int, flush: torch.Tensor | None) -> float:
+def make_flush(device) -> torch.Tensor:
+    """The L2 flush buffer: L2_FLUSH_BYTES written once, here."""
+    return torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+
+
+def time_ms(fn, device, reps: int, flush: torch.Tensor | None, write_flush: bool = False) -> float:
     """Mean device time of fn() over reps launches, the L2 flushed before
-    each unless ``flush`` is None."""
+    each unless ``flush`` is None.
+
+    The flush reads ``flush`` (more than twice the 50 MB L2), which nothing
+    writes after make_flush: the timed launch finds L2 full of clean lines
+    of no use to it.  ``write_flush`` zeroes the buffer instead, the flush
+    this script used before, kept to compare: it leaves up to 50 MB of
+    dirty lines, and their write-back to device memory lands inside the
+    timed launch."""
     fn()
     total = 0.0
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            if write_flush:
+                flush.zero_()
+            else:
+                flush.sum()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -800,6 +841,48 @@ def backstep_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, 
     return float(sectors * 32 + n * 20), float(ops)
 
 
+def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
+                      sampled_sa, bwt_len) -> tuple[float, float]:
+    """(bytes, ops) of the walks these rows take: each distinct 32 B sector
+    the visits touch (a stepping visit: the sector of the row's mark word,
+    the V plane sectors and the stepped symbol's milestone sector; a final
+    visit: the sectors of the mark words up to the row's word and of the
+    mark milestone), each distinct sector of the marked SA read, and 16 B
+    per lane (the row in, the text position out); ops: backstep's per
+    stepping visit, the mark rank and 4 more per lane."""
+    spr = blocks.shape[1] // 8
+    visit_args = (prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+    sectors, sa_sectors, stepping_visits = [], [], 0
+    pos = rows
+    for visit in range(1, mark_ratio + 1):
+        p, r = kernels._fetch_rows(blocks, pos)
+        base = (p >> 8) * spr
+        word = (p & 255) >> 5
+        final = (kernels._bit_at(r, mark_offset, p) == 1) | (visit == mark_ratio)
+        sym = kernels._symbol_rows(r, p, c2i, nplanes)
+        del r
+        safe = torch.where(sym == 0, ambiguity_idx, sym)
+        step = ~final
+        sectors += [
+            base + ((mark_offset + word) >> 3),
+            base[final] + (mark_offset >> 3),
+            base[final] + ((mark_offset + 8) >> 3),
+            (base[step][:, None] + torch.arange(nplanes, device=p.device)).reshape(-1),
+            base[step] + ((nplanes * 8 + safe[step]) >> 3),
+        ]
+        _, packed = kernels.backstep_plain(blocks, pos[final], *visit_args)
+        rank = ((packed.to(torch.int64) & 0xFFFFFFFF) >> 1).clamp_max(sampled_sa.shape[0] - 1)
+        sa_sectors.append(rank >> 3)
+        stepping_visits += int(step.sum())
+        pos = kernels.backstep_plain(blocks, pos[step], *visit_args)[0]
+        if not pos.numel():
+            break
+    distinct = torch.unique(torch.cat(sectors)).numel() + torch.unique(torch.cat(sa_sectors)).numel()
+    n = rows.shape[0]
+    ops = stepping_visits * (nplanes * 3 + nplanes * 16 + 8 * 3 + 2 + 3) + n * (8 * 3 + 4 + 4)
+    return float(distinct * 32 + n * 16), float(ops)
+
+
 def time_split(run: dict, device: torch.device) -> dict:
     """Where the end-to-end time goes, over the path's full batches: the
     host encode alone, the same batches served from their pre-encoded wire,
@@ -847,12 +930,15 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
     batch = len(run["batches"][0])
     names = {id(dev.kmer_flat): "seed", id(dev.text_sampled_sa): "sa", id(dev.text_packed): "text",
              id(dev.vw_flat): "slot fat"}
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    flush = make_flush(device)
     rows = []
     per_kernel = {}
-    visits = 0
-    # The k-mer build's occ call (chr20 path) is timed beside the serving calls.
+    walks = visits = 0
+    # The k-mer build's occ call (chr20 path) is timed beside the serving
+    # calls, and backstep (off the serving path) as one visit over the rows
+    # of each full-batch walk.
     calls = run["calls"] + ([("occ", run["occ_call"])] if "occ_call" in run else [])
+    calls += [("backstep", a[:8]) for kind, a in run["calls"] if kind == "marked_walk" and a[1].shape[0] >= batch]
     checked: dict = {}
     for kind, args in calls:
         fn = getattr(kernels, kind)
@@ -867,13 +953,15 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
         if args[1].shape[0] < batch:
             continue  # a re-dispatch call, not the verify path's: checked, not timed
         ms = time_ms(lambda: fn(*args), device, 20, flush)
+        ms_wf = time_ms(lambda: fn(*args), device, 20, flush, write_flush=True)
         plain_ms = time_ms(lambda: plain(*args), device, 5, flush)
-        lib_ms = warm_ms = None
+        lib_ms = lib_ms_wf = warm_ms = None
         if kind == "window_read":
             flat, wbase, k = args
             site = f"{names.get(id(flat), 'table')} k={k}"
             idx = wbase.clamp(k - 1, flat.shape[0] - 1)[:, None] - torch.arange(k, device=device)
             lib_ms = time_ms(lambda: flat[idx], device, 20, flush)
+            lib_ms_wf = time_ms(lambda: flat[idx], device, 20, flush, write_flush=True)
             nbytes, ops = window_read_bound(*args)
         elif kind == "occ_pair":
             site = "rank step"
@@ -884,22 +972,38 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
             site = "k-mer build chunk"
             nbytes, ops = occ_bound(*args)
             warm_ms = time_ms(lambda: fn(*args), device, 20, None)
+        elif kind == "marked_walk":
+            walks += 1
+            site = f"walk {walks} (mark {args[8]})"
+            nbytes, ops = marked_walk_bound(*args)
         else:
             visits += 1
-            site = f"walk visit {visits}"
+            site = f"one visit over walk {visits}'s rows"
             nbytes, ops = backstep_bound(*args)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
         row = {
-            "kernel": kind, "site": site, "requests": int(args[1].shape[0]), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bytes": nbytes, "ops": ops, "max_abs_err": err,
+            "kernel": kind, "site": site, "requests": int(args[1].shape[0]), "ms": ms, "ms_write_flush": ms_wf,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library_ms_write_flush": lib_ms_wf, "bound_ms": bound,
+            "bytes": nbytes, "ops": ops, "max_abs_err": err,
         }
         if warm_ms is not None:
             row["ms_l2_not_flushed"] = warm_ms
         rows.append(row)
-        agg = per_kernel.setdefault(kind, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0})
-        for key in ("ms", "plain_ms", "bound_ms", "bytes", "ops"):
+        agg = per_kernel.setdefault(kind, {"ms": 0.0, "ms_write_flush": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                           "library_ms_write_flush": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0})
+        for key in ("ms", "ms_write_flush", "plain_ms", "bound_ms", "bytes", "ops"):
             agg[key] += row[key]
-        agg["library_ms"] = None if lib_ms is None or agg["library_ms"] is None else agg["library_ms"] + lib_ms
+        for key in ("library_ms", "library_ms_write_flush"):
+            agg[key] = None if row[key] is None or agg[key] is None else agg[key] + row[key]
+    # The flush's yardstick: plain reads of known sizes under both flushes.
+    request = next(args[1] for kind, args in calls if kind == "window_read")
+    fused = dev.blocks.view(-1)[: (64 << 20) // 4]
+    for label, t in (("sum of a window_read request tensor", request), ("sum of the fused rows' first words", fused)):
+        nbytes = t.numel() * t.element_size()
+        rows.append({
+            "kernel": "yardstick", "site": label, "bytes": float(nbytes), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ms": time_ms(t.sum, device, 20, flush), "ms_write_flush": time_ms(t.sum, device, 20, flush, write_flush=True),
+        })
     return rows, per_kernel, checked
 
 
@@ -911,7 +1015,8 @@ def report(name: str, run: dict, device: torch.device) -> dict:
     split = time_split(run, device)
     log(f"  {name} time split: {json.dumps(split)}")
     rows, per_kernel, checked = kernel_report(run, device)
-    log(f"  {name} main-path kernel calls equal to their plain versions: {json.dumps(checked)}")
+    log(f"  {name} recorded kernel calls (and backstep over each full walk's rows) equal to their plain "
+        f"versions: {json.dumps(checked)}")
     for row in rows:
         log("  " + json.dumps(row))
     build_launches = run.get("build_launches", dict.fromkeys(KERNELS, 0))
@@ -1104,7 +1209,9 @@ def main() -> int:
     log(f"phase 10 GRCh38-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; launches "
         f"{run['launches']}; peak device memory {torch.cuda.max_memory_allocated(device)} B "
         f"({time.perf_counter() - t0:.3f} s with text and build)")
-    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "backstep"))
+    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "marked_walk"))
+    if run["launches"]["backstep"]:
+        raise AssertionError("the GRCh38-shaped path launched backstep: its walk must be one marked_walk launch")
     stats = run["engine"].stats
     if stats["wide_lanes"] <= 0 or stats["redis_lanes"] <= 0:
         raise AssertionError(f"the GRCh38-shaped path took no wide or no re-dispatched lane: {stats}")
@@ -1120,9 +1227,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Times of window_read and occ_pair come from the chr1 path (slice 1's
-    # numbers stay comparable), backstep's from the GRCh38-shaped path, occ's
-    # from the chr20-shaped k-mer build; launches add up over all paths.
-    times_from = {"window_read": "chr1", "occ_pair": "chr1", "backstep": "grch38", "occ": "chr20"}
+    # numbers stay comparable), marked_walk's and backstep's (one visit over
+    # the walk's recorded rows) from the GRCh38-shaped path, occ's from the
+    # chr20-shaped k-mer build; launches add up over all paths.
+    times_from = {"window_read": "chr1", "occ_pair": "chr1", "backstep": "grch38", "occ": "chr20",
+                  "marked_walk": "grch38"}
     kernels_line = []
     for name in KERNELS:
         path = times_from[name]
@@ -1130,11 +1239,13 @@ def main() -> int:
         # Phase 3's inputs and every main-path call checked in the reports.
         errs = [v["max_abs_err"] for key, v in exact.items() if key.split(":")[0] == name]
         errs += [p["checked_vs_plain"][name]["max_abs_err"] for p in paths.values() if name in p["checked_vs_plain"]]
+        errs += [row["max_abs_err"] for p in paths.values() for row in p["sites"] if row["kernel"] == name]
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(p["launches"][name] for p in paths.values()),
             "max_abs_err": max(errs),
-            "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
+            "ms": agg["ms"], "ms_write_flush": agg["ms_write_flush"], "plain_ms": agg["plain_ms"],
+            "bound_ms": agg["bound_ms"], "library_ms_write_flush": agg["library_ms_write_flush"],
             "bound_by": "bytes" if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / INT32_OPS_PER_S else "operations",
             "library_ms": agg["library_ms"], "times_from_path": path,
             "launches_by_path": {p: v["launches"][name] for p, v in paths.items()},

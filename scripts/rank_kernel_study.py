@@ -1,35 +1,46 @@
 #!/usr/bin/env python3
-"""The rank kernels of awry_tpu_torch (occ_pair, occ) timed on one NVIDIA GPU
-against other builds of their source, in turns, at the shapes chip_smoke.py's
-paths give them.
+"""The kernels of awry_tpu_torch timed on one NVIDIA GPU against other builds
+of their sources, in turns, at the shapes chip_smoke.py's paths give them:
+the rank kernels (occ_pair, occ), window_read and the marked LF walk.
 
     python3 scripts/rank_kernel_study.py [--baseline DIR ...]
+        [--kernels occ_pair,occ,window_read,marked_walk]
         [--paths chr1,chr20,grch38] [--pairs] [--out PATH]
 
 Builds (nvcc with the package's own flags, all started together):
 
-- ``new``: awry_tpu_torch/csrc/occ_pair.cu as the package builds it; it
-  must equal the plain version at every site;
-- ``--baseline DIR`` (repeatable): ``DIR/occ_pair.cu``, another revision of
-  the source (``git show REV:awry_tpu_torch/csrc/occ_pair.cu``) or a copy cut
-  down for an ablation, named by DIR's last part, its entry points renamed.
-  Its largest error against the plain version is recorded, not enforced: a
-  cut that does not compute the rank is timed all the same.
+- ``new``: the package's sources as the package builds them; every call
+  must equal the plain version;
+- ``--baseline DIR`` (repeatable): whichever of ``DIR/occ_pair.cu``,
+  ``DIR/window_read.cu`` and ``DIR/backstep.cu`` exist, another revision
+  (``git show REV:awry_tpu_torch/csrc/NAME.cu``) or a copy cut down for an
+  ablation, built into one library named by DIR's last part, its entry
+  points renamed.  Its largest error against the plain version is recorded,
+  not enforced: a cut that does not compute the function is timed all the
+  same.  A kernel whose source DIR lacks runs the package's build.
 
-Inputs, recorded from the paths:
+Inputs, recorded from the paths (each kernel's full-batch calls of the
+path's first batch):
 
-- ``chr1``: the full-batch rank steps (``occ_pair``) of chip_smoke's chr1
-  path's first batch (250 Mbp, k = 13);
-- ``chr20``: every full chunk (``occ``) of the k-mer build of the
-  chr20-shaped index (64 Mbp, k = 13; levels 11, 12 and 13), and their sum;
-- ``grch38``: the GRCh38-shaped path's full-batch rank steps of its first
-  batch (1 Gbp, mark 4).
+- ``chr1`` (250 Mbp, k = 13, mark 1): occ_pair's rank steps; window_read's
+  seed, SA and text reads;
+- ``chr20`` (64 Mbp, k = 13): occ over every full chunk of the k-mer build
+  (levels 11, 12 and 13) and their sum; window_read's seed read and slot
+  fat rows (the slot regime's serving);
+- ``grch38`` (1 Gbp, mark 4): occ_pair's rank steps; window_read's seed
+  and text reads; the verify walk's rows (marked_walk).
 
-Each site: every build in turns (b1 .. bk, then bk .. b1), 20 launches each
-timed by chip_smoke's ``time_ms`` with the L2 flushed before each launch.
-``--pairs``: ``occ_pair`` also on the chr1 calls with every pair moved into
-one block, then into two blocks.  The full record goes to ``--out`` as
-JSON; the last line printed is the card's name and power limit.
+Each site: every build in turns (b1 .. bk, then bk .. b1, twice), 20
+launches each timed by chip_smoke's ``time_ms`` (L2 flushed by a read
+before each launch); a build's ms is the median of its 4 turns, each turn
+kept in the record.  window_read sites add PyTorch's ``flat[idx]`` to the turns.  The
+walk is timed whole (events around the call): a build with marked_walk in
+one launch, a build without it (the parent's) as mark_ratio backstep
+launches, the glue between them and the k=1 window_read of the marked SA
+(kernels.walk_by_visits); ``new, by visits`` runs the new build that way.
+``--pairs``: occ_pair also on the chr1 calls with every pair moved into one
+block, then into two blocks.  The full record goes to ``--out`` as JSON;
+the last line printed is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -59,11 +70,23 @@ from awry_tpu_torch.ops.kmer import _level_chunk  # noqa: E402
 
 STUDY_DIR = os.path.join(kernels.BUILD_DIR, "study")
 REPS = 20
+TURN_PAIRS = 2  # forward and backward turns per site, each REPS launches
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
 I32 = ctypes.c_int
-PAIR_ARGTYPES = [I32, P, I64, I32, I32, I32, P, P, P, P, I64, P, P, P]
-OCC_ARGTYPES = [I32, P, I64, I32, I32, I32, P, P, P, I64, P, P]
+# Each source's entry points and their argument types.
+ENTRIES = {
+    "occ_pair.cu": {
+        "occ_pair": [I32, P, I64, I32, I32, I32, P, P, P, P, I64, P, P, P],
+        "occ": [I32, P, I64, I32, I32, I32, P, P, P, I64, P, P],
+    },
+    "window_read.cu": {"window_read": [I32, P, I64, P, I64, I32, P, P]},
+    "backstep.cu": {
+        "backstep": [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, P, P, P],
+        "marked_walk": [I32, P, I64, I32, I32, P, P, P, I32, I32, I32, P, I64, I64, P, I64, P, P],
+    },
+}
+KINDS = ("occ_pair", "occ", "window_read", "marked_walk")
 
 
 def log(msg: str) -> None:
@@ -73,30 +96,47 @@ def log(msg: str) -> None:
 # -- builds ------------------------------------------------------------------------
 
 
-def _start_baseline(directory: str) -> tuple[str, str, subprocess.Popen]:
-    """Start nvcc on DIR/occ_pair.cu with its entry points renamed
-    ``<name>_occ_pair`` / ``<name>_occ``."""
+def _start_baseline(directory: str) -> tuple[str, str, list, subprocess.Popen]:
+    """Start nvcc on DIR's sources, their entry points renamed ``<name>_*``."""
     name = re.sub(r"\W", "_", os.path.basename(os.path.normpath(directory)))
-    with open(os.path.join(directory, "occ_pair.cu")) as f:
-        text = f.read().replace("awry_occ", f"{name}_occ")
-    src = os.path.join(STUDY_DIR, f"{name}_occ_pair.cu")
-    with open(src, "w") as f:
-        f.write(text)
-    h = hashlib.sha256((text + " ".join(kernels.NVCC_FLAGS)).encode()).hexdigest()[:12]
-    out = os.path.join(STUDY_DIR, f"{name}-{h}.so")
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", out, src]
-    return name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    srcs, present, h = [], [], hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+    for source in ENTRIES:
+        path = os.path.join(directory, source)
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            text = re.sub(r"\bawry_", f"{name}_", f.read())
+        src = os.path.join(STUDY_DIR, f"{name}_{source}")
+        with open(src, "w") as f:
+            f.write(text)
+        h.update(text.encode())
+        srcs.append(src)
+        present.append(source)
+    if not srcs:
+        raise ValueError(f"{directory} holds none of {list(ENTRIES)}")
+    out = os.path.join(STUDY_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", out, *srcs]
+    return name, out, present, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
-def _bind(path: str, name: str) -> ctypes.CDLL:
-    """Load a build and expose its entry points under the package's names,
-    so that kernels.occ_pair / kernels.occ launch them."""
-    lib = ctypes.CDLL(path)
-    for entry, argtypes in (("occ_pair", PAIR_ARGTYPES), ("occ", OCC_ARGTYPES)):
-        fn = getattr(lib, f"{name}_{entry}")
-        fn.restype, fn.argtypes = I32, argtypes
-        setattr(lib, f"awry_{entry}", fn)
-    return lib
+class _Build:
+    """A baseline's entry points under the package's names; entries of the
+    sources it lacks fall through to the package's own build.  It walks in
+    one launch unless its backstep.cu has no marked_walk (the parent's)."""
+
+    def __init__(self, path: str, name: str, present: list, fallback):
+        self._lib = ctypes.CDLL(path)
+        for source in present:
+            for entry, argtypes in ENTRIES[source].items():
+                if hasattr(self._lib, f"{name}_{entry}"):
+                    fn = getattr(self._lib, f"{name}_{entry}")
+                    fn.restype, fn.argtypes = I32, argtypes
+                    setattr(self, f"awry_{entry}", fn)
+        self.walks_fused = "backstep.cu" not in present or hasattr(self._lib, f"{name}_marked_walk")
+        self._fallback = fallback
+
+    def __getattr__(self, attr):
+        return getattr(self._fallback, attr)
 
 
 def build_all(baselines: list[str]) -> tuple[dict, dict]:
@@ -104,16 +144,16 @@ def build_all(baselines: list[str]) -> tuple[dict, dict]:
     report."""
     os.makedirs(STUDY_DIR, exist_ok=True)
     pending = [_start_baseline(d) for d in baselines]
-    kernels._lib()  # the package's own build ("new")
+    new = kernels._lib()  # the package's own build
     with open(kernels.library_path() + ".log") as f:
-        ptxas = {"new": [ln.strip() for ln in f if "occ" in ln or "registers" in ln]}
-    libs = {"new": kernels._lib()}
-    for name, out, proc in pending:
+        ptxas = {"new": [ln.strip() for ln in f if "Compiling" in ln or "registers" in ln]}
+    libs = {"new": new}
+    for name, out, present, proc in pending:
         text = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
         ptxas[name] = [ln.strip() for ln in text.splitlines() if "registers" in ln or "Compiling" in ln]
-        libs[name] = _bind(out, name)
+        libs[name] = _Build(out, name, present, new)
     return libs, ptxas
 
 
@@ -131,58 +171,109 @@ def using(lib):
 # -- recorded inputs ------------------------------------------------------------------
 
 
-def record_chr1(device, rng) -> list:
-    run = cs.chr1_path(device, rng)
-    steps = [a for kind, a in run["calls"] if kind == "occ_pair" and a[1].shape[0] == cs.BATCH]
+def _table_names(dev) -> dict:
+    return {id(dev.kmer_flat): "seed", id(dev.text_sampled_sa): "sa", id(dev.text_packed): "text",
+            id(dev.vw_flat): "slot fat"}
+
+
+def _serving_sites(run: dict, kinds) -> list:
+    """The full-batch calls of the path's first batch, labelled."""
+    names, sites, steps = _table_names(run["engine"].device_index), [], 0
+    for kind, a in run["calls"]:
+        if kind not in kinds or a[1].shape[0] < cs.BATCH:
+            continue
+        if kind == "occ_pair":
+            steps += 1
+            sites.append((kind, f"step {steps}", a))
+        elif kind == "window_read":
+            sites.append((kind, f"{names.get(id(a[0]), 'table')} k={a[2]}", a))
+        elif kind == "marked_walk":
+            sites.append((kind, f"walk rows (mark {a[8]})", a))
     run["engine"].release()
-    return [("occ_pair", f"step {i + 1}", a) for i, a in enumerate(steps)]
+    return sites
 
 
-def record_chr20(device, rng) -> list:
-    text_np = cs.LETTERS[rng.integers(0, 4, size=cs.C_SYMBOLS, dtype=np.uint8)]
-    index = build_from_records(
-        [("chr20_synthetic", text_np.tobytes())],
-        FmBuildArgs(lookup_table_kmer_len=cs.KMER_LEN, locate_mark_ratio=1, suffix_array_compression_ratio=8),
-    )
-    minimal = to_device(index, device, minimal=True)
-    full = 2 * _level_chunk(4, 4**cs.KMER_LEN)
-    calls: list = []
-    with cs.recording_kernel_inputs(calls, lambda name, a: name == "occ" and a[1].shape[0] == full):
-        table = populate_kmer_table_device(minimal, cs.KMER_LEN)
-    if not np.array_equal(table, index.kmer_table):
-        raise AssertionError("the device k-mer table differs from the host counting table")
-    # At k = 13 a full chunk is 4^11 updates: level 11 one, 12 four, 13 sixteen.
-    return [("occ", f"level {11 if i == 0 else 12 if i < 5 else 13}, chunk {i + 1}", a) for i, (_, a) in enumerate(calls)]
+def record_chr1(device, rng, kinds) -> list:
+    return _serving_sites(cs.chr1_path(device, rng), kinds)
 
 
-def record_grch38(device, rng) -> list:
-    run = cs.grch38_path(device, rng)
-    steps = [a for kind, a in run["calls"] if kind == "occ_pair" and a[1].shape[0] == cs.BATCH]
-    run["engine"].release()
-    return [("occ_pair", f"step {i + 1}", a) for i, a in enumerate(steps)]
+def record_chr20(device, rng, kinds) -> list:
+    sites = []
+    if "occ" in kinds:
+        text_np = cs.LETTERS[rng.integers(0, 4, size=cs.C_SYMBOLS, dtype=np.uint8)]
+        index = build_from_records(
+            [("chr20_synthetic", text_np.tobytes())],
+            FmBuildArgs(lookup_table_kmer_len=cs.KMER_LEN, locate_mark_ratio=1, suffix_array_compression_ratio=8),
+        )
+        minimal = to_device(index, device, minimal=True)
+        full = 2 * _level_chunk(4, 4**cs.KMER_LEN)
+        calls: list = []
+        with cs.recording_kernel_inputs(calls, lambda name, a: name == "occ" and a[1].shape[0] == full):
+            table = populate_kmer_table_device(minimal, cs.KMER_LEN)
+        if not np.array_equal(table, index.kmer_table):
+            raise AssertionError("the device k-mer table differs from the host counting table")
+        # At k = 13 a full chunk is 4^11 updates: level 11 one, 12 four, 13 sixteen.
+        sites += [("occ", f"level {11 if i == 0 else 12 if i < 5 else 13}, chunk {i + 1}", a)
+                  for i, (_, a) in enumerate(calls)]
+        del index, minimal, table
+    if "window_read" in kinds:
+        run = cs.chr20_path(device, rng)
+        run.pop("index", None)
+        sites += _serving_sites(run, kinds)
+    return sites
+
+
+def record_grch38(device, rng, kinds) -> list:
+    return _serving_sites(cs.grch38_path(device, rng), kinds)
 
 
 # -- timing ----------------------------------------------------------------------------
 
 
-def time_site(libs: dict, kind: str, args, device, flush) -> dict:
-    """Each build's largest error against the plain version, and its mean
-    ms timed in turns (forward, then backward)."""
-    plain = getattr(kernels, f"{kind}_plain")(*args)
-    errs, times = {}, {name: [] for name in libs}
-    for name, lib in libs.items():
+def _walk(lib, args):
+    """The whole walk on ``lib``: one marked_walk launch if it has one, else
+    by visits of its backstep and window_read."""
+    with using(lib):
+        if getattr(lib, "walks_fused", True):
+            return kernels.marked_walk(*args)
+        return kernels.walk_by_visits(kernels.backstep, kernels.window_read, *args)
+
+
+def contenders(libs: dict, kind: str, args) -> dict:
+    """{name: fn} timed in turns at a site."""
+    if kind == "marked_walk":
+        out = {name: (lambda lib=lib: _walk(lib, args)) for name, lib in libs.items()}
+
+        def by_visits():
+            with using(libs["new"]):
+                return kernels.walk_by_visits(kernels.backstep, kernels.window_read, *args)
+
+        return out | {"new, by visits": by_visits}
+
+    def launch(lib):
         with using(lib):
-            errs[name] = cs.result_err(getattr(kernels, kind)(*args), plain)
+            return getattr(kernels, kind)(*args)
+
+    out = {name: (lambda lib=lib: launch(lib)) for name, lib in libs.items()}
+    if kind == "window_read":
+        flat, wbase, k = args
+        idx = wbase.clamp(k - 1, flat.shape[0] - 1)[:, None] - torch.arange(k, device=flat.device)
+        out["flat[idx]"] = lambda: flat[idx]
+    return out
+
+
+def time_site(libs: dict, kind: str, args, device, flush) -> dict:
+    """Each contender's largest error against the plain version, and its
+    median ms over turns (forward, then backward, TURN_PAIRS times)."""
+    plain = getattr(kernels, f"{kind}_plain")(*args)
+    fns = contenders(libs, kind, args)
+    errs = {name: cs.result_err(fn(), plain) for name, fn in fns.items()}
     if errs["new"] != 0:
         raise AssertionError(f"{kind} disagrees with its plain version: max abs err {errs['new']}")
-    for name in list(libs) + list(libs)[::-1]:
-
-        def run(lib=libs[name]):
-            with using(lib):
-                getattr(kernels, kind)(*args)
-
-        times[name].append(cs.time_ms(run, device, REPS, flush))
-    return {"max_abs_err": errs, "ms": {name: sum(v) / len(v) for name, v in times.items()}}
+    times = {name: [] for name in fns}
+    for name in (list(fns) + list(fns)[::-1]) * TURN_PAIRS:
+        times[name].append(cs.time_ms(fns[name], device, REPS, flush))
+    return {"max_abs_err": errs, "ms": {name: float(np.median(v)) for name, v in times.items()}, "turns_ms": times}
 
 
 def same_block(args):
@@ -199,9 +290,12 @@ def two_blocks(args):
     return (blocks, pa, (((pa >> 8) + 1) % nb << 8) | (pb & 255), sym, codes, nplanes)
 
 
+BOUNDS = {"occ_pair": cs.occ_pair_bound, "occ": cs.occ_bound, "window_read": cs.window_read_bound,
+          "marked_walk": cs.marked_walk_bound}
+
+
 def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dict:
-    bound_fn = {"occ_pair": cs.occ_pair_bound, "occ": cs.occ_bound}[kind]
-    nbytes, ops = bound_fn(*call)
+    nbytes, ops = BOUNDS[kind](*call)
     row = {"path": path, "kernel": kind, "site": label, "requests": int(call[1].shape[0]),
            "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.INT32_OPS_PER_S) * 1e3}
     if kind == "occ_pair":
@@ -216,12 +310,16 @@ def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dic
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--baseline", action="append", default=[], help="directory holding another occ_pair.cu")
+    parser.add_argument("--baseline", action="append", default=[], help="directory holding other kernel sources")
+    parser.add_argument("--kernels", default="occ_pair,occ", help=f"comma-separated, of {','.join(KINDS)}")
     parser.add_argument("--paths", default="chr1,chr20", help="comma-separated: chr1, chr20, grch38")
     parser.add_argument("--pairs", action="store_true", help="occ_pair on chr1 pairs moved into one / two blocks")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="write the full record as JSON here")
     args = parser.parse_args()
+    kinds = set(args.kernels.split(","))
+    if not kinds <= set(KINDS):
+        parser.error(f"--kernels: unknown {sorted(kinds - set(KINDS))}")
     if not torch.cuda.is_available():
         print("rank_kernel_study: no CUDA device is available", file=sys.stderr)
         return 2
@@ -234,23 +332,24 @@ def main() -> int:
     for name, lines in ptxas.items():
         for ln in lines:
             log(f"  ptxas {name}: {ln}")
-    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    flush = cs.make_flush(device)
     rng = np.random.default_rng(args.seed)
     rows, sums = [], {}
     for path in args.paths.split(","):
         t0 = time.perf_counter()
-        sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38}[path](device, rng)
+        sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38}[path](device, rng, kinds)
         log(f"{path}: {len(sites)} sites recorded in {time.perf_counter() - t0:.1f} s")
         for kind, label, call in sites:
             rows.append(site_row(libs, path, kind, label, call, device, flush))
-            if args.pairs and path == "chr1":
+            if args.pairs and path == "chr1" and kind == "occ_pair":
                 for name, fn in (("one block", same_block), ("two blocks", two_blocks)):
                     rows.append(site_row(libs, path, kind, f"{label}, every pair in {name}", fn(call), device, flush))
-        if path == "chr20":
-            ours = [r for r in rows if r["path"] == "chr20"]
-            sums["chr20 full chunks"] = {"chunks": len(ours), "bound_ms": sum(r["bound_ms"] for r in ours),
-                                         "ms": {n: sum(r["ms"][n] for r in ours) for n in libs}}
-            log(json.dumps(sums))
+        for kind in ("occ", "window_read"):
+            ours = [r for r in rows if r["path"] == path and r["kernel"] == kind]
+            if len(ours) > 1:
+                sums[f"{path} {kind}"] = {"sites": len(ours), "bound_ms": sum(r["bound_ms"] for r in ours),
+                                          "ms": {n: sum(r["ms"][n] for r in ours) for n in ours[0]["ms"]}}
+                log(json.dumps({f"{path} {kind}": sums[f"{path} {kind}"]}))
         del sites
         gc.collect()
         torch.cuda.empty_cache()

@@ -32,16 +32,36 @@ def _device_index(alphabet, n, seed, mark_ratio=1):
 
 @pytest.mark.cuda
 def test_window_read_matches_plain(card):
+    """window_read equals its plain version at every templated width (1, 2,
+    3, 4, 15) and at widths without a kernel of their own (5, 7), on the
+    index's tables and on an odd-length table, with wbase below 0 and past
+    the end and request counts that fill no whole tile."""
     tdev, rng = _device_index(Alphabet.NUCLEOTIDE, 60_000, 1)
-    for flat in (tdev.text_sampled_sa.to(card), tdev.text_packed.to(card), tdev.kmer_flat.to(card)):
-        wbase = torch.from_numpy(rng.integers(-5, flat.shape[0] + 5, size=4099)).to(card)
-        for k in (1, 2, 3, 5):
-            n0 = kernels.window_read.launches
-            got = kernels.window_read(flat, wbase, k)
-            assert kernels.window_read.launches == n0 + 1
-            assert torch.equal(got, kernels.window_read_plain(flat, wbase, k))
+    odd = torch.from_numpy(rng.integers(-(2**31), 2**31, size=100_003).astype(np.int32)).to(card)
+    for flat in (tdev.text_sampled_sa.to(card), tdev.text_packed.to(card), tdev.kmer_flat.to(card), odd):
+        for n in (4099, 1, 1023):
+            wbase = torch.from_numpy(rng.integers(-5, flat.shape[0] + 5, size=n)).to(card)
+            for k in (1, 2, 3, 4, 15, 5, 7):
+                n0 = kernels.window_read.launches
+                got = kernels.window_read(flat, wbase, k)
+                assert kernels.window_read.launches == n0 + 1
+                assert torch.equal(got, kernels.window_read_plain(flat, wbase, k)), (flat.shape[0], n, k)
     empty = kernels.window_read(flat, wbase[:0], 2)
     assert empty.shape == (0, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_window_read_aligned_windows(card, k):
+    """Windows that all start on a k-word boundary (the seed table's pairs,
+    the slot regime's fat rows) take the kernel's vector loads; a quarter of
+    the warps mixed with unaligned windows take the scalar ones."""
+    rng = np.random.default_rng(9)
+    flat = torch.from_numpy(rng.integers(-(2**31), 2**31, size=80_001).astype(np.int32)).to(card)
+    wb = rng.integers(0, flat.shape[0] // k, size=5001) * k + k - 1
+    wb[: 5001 // 4] = rng.integers(-3, flat.shape[0] + 3, size=5001 // 4)
+    wbase = torch.from_numpy(wb).to(card)
+    assert torch.equal(kernels.window_read(flat, wbase, k), kernels.window_read_plain(flat, wbase, k))
 
 
 def _pairs(kind: str, n: int, rng, size: int = 4099):
@@ -100,20 +120,39 @@ def test_backstep_matches_plain(card, alphabet):
 
 
 @pytest.mark.cuda
-def test_lf_walk_mark4_matches_cpu(card):
-    """The marked walk on the card (backstep + window_read k=1) equals the
-    CPU walk through the plain versions, row 0 and the last row included."""
+@pytest.mark.parametrize("mark_ratio", [2, 4, 32])
+def test_lf_walk_mark4_matches_cpu(card, mark_ratio):
+    """The marked walk on the card (one marked_walk launch, no backstep)
+    equals the CPU walk through the plain versions, row 0 and the last row
+    included, at mark ratios 2, 4 (the default build's) and 32."""
     rng = np.random.default_rng(4)
     seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=60_000))
     index = build_from_records([("a", b"N" * 50 + seq[:40_000]), ("b", seq[40_000:] + b"N" * 50)],
-                               FmBuildArgs(lookup_table_kmer_len=4))
-    assert index.resolved_mark_ratio == 4
+                               FmBuildArgs(lookup_table_kmer_len=4, locate_mark_ratio=mark_ratio))
+    assert index.resolved_mark_ratio == mark_ratio
     rows = np.concatenate([[0, index.bwt_len - 1], rng.integers(0, index.bwt_len, size=5000)])
-    n0 = kernels.backstep.launches
+    n0, b0 = kernels.marked_walk.launches, kernels.backstep.launches
     got = lf_walk(to_device(index, card), torch.from_numpy(rows).to(card))
-    assert kernels.backstep.launches == n0 + 4
+    assert kernels.marked_walk.launches == n0 + 1 and kernels.backstep.launches == b0
     want = lf_walk(to_device(index, "cpu"), torch.from_numpy(rows))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+@pytest.mark.parametrize("mark_ratio", [2, 32])
+def test_marked_walk_matches_plain(card, alphabet, mark_ratio):
+    """marked_walk equals its plain version on rows past either end, the
+    table's edges and random rows."""
+    tdev, rng = _device_index(alphabet, 60_000, 10, mark_ratio=mark_ratio)
+    n, nbits = tdev.bwt_len, tdev.blocks.shape[0] * 256
+    rows = torch.from_numpy(np.concatenate([[0, n - 1, n, nbits - 1, nbits + 9, -4], rng.integers(0, n, size=4093)]))
+    args = [t.to(card) for t in (tdev.blocks, rows, tdev.prefix_sums, tdev.codes, tdev.c2i)]
+    tail = (tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx, mark_ratio, tdev.text_sampled_sa.to(card), n)
+    n0 = kernels.marked_walk.launches
+    got = kernels.marked_walk(*args, *tail)
+    assert kernels.marked_walk.launches == n0 + 1
+    assert torch.equal(got, kernels.marked_walk_plain(*args, *tail))
 
 
 def _build_chunk(alphabet, card):
