@@ -12,10 +12,12 @@
 //
 // sampled_walk: the reference's row-sampled LF walk of each row to its text
 // position, for indexes without marks (loaded from .awry files): LF steps
-// while row % sa_ratio != 0, then sampled_sa[row / sa_ratio] + steps.  The
-// two walks are one kernel template (walk_kernel) over the LF core that
-// backstep uses, with the stop rule as its parameter (MarkedStop,
-// SampledStop).
+// while row % sa_ratio != 0, then sampled_sa[row / sa_ratio] + steps.
+// sampled_walk_ranges: the same walks fed by query ranges, as the classic
+// path asks for them: slot (q, j) of a [B, cap] output walks row starts[q]
+// + j for j < min(counts[q], cap), and every other slot holds the walk of
+// row 0 (sampled: its SA value), which is what the flat walk of the
+// classic path's padded rows wrote there.
 //
 // backstep replaces awry_tpu/ops/sweep.py:_backstep_kernel_anchored as
 // backstep_mark_sweep runs it (one visit) and its blocked twin
@@ -37,55 +39,93 @@
 // mark_rank = mark milestone + popcount of the mark words masked to bits
 // [0, row & 255).
 //
+// The LF core (all three kernels): one round trip to device memory per
+// step.  A nucleotide row's planes are words 0-23 and its milestones words
+// 24-29, so one 128 B request (8 uint4 loads) brings both, and the
+// symbol's milestone is picked from registers (an amino step takes a
+// second trip for its milestone word, RowWords).  The code -> step table
+// (per occurrence code: the safe symbol, its code, C[safe] - 1 and the
+// sentinel flag) sits in shared memory, loaded once per block, so the
+// dependent global loads of c2i, codes and prefix_sums are gone.
+//
 // Bound: device-memory traffic of scattered reads.  Each visit reads one
 // random row of a table far larger than L2 (625 MB of nucleotide rows at
 // 1 Gbp): the V plane sectors, the milestone's sector, the mark words'
 // sectors up to the row's word and the mark milestone's (at most the whole
 // 160 B nucleotide row), plus 20 B of request/result I/O; a few dozen
-// integer operations.
+// integer operations.  A walk is a chain of dependent round trips, so a
+// batch also has a floor of its longest walk times one step's latency.
 //
-// Design: one thread per row.  Each plane is loaded as two 16 B uint4 words
-// and the mark words as four 8 B uint2 words (mark_offset is even), so the
-// row arrives in sector-sized loads; the symbol bit, the rank and the mark
-// rank all come from those registers, with hardware popcounts.  No sort, no
-// anchors, no coverage fixup and no shared-memory window: those streamed
-// HBM windows through the TPU's VMEM.  Rows are clamped into the table.
-//
-// The walk as backstep launches (the first port) cost mark_ratio launches
-// per walk, each over every lane: a lane already marked re-read its frozen
-// row on every visit (4 row reads per lane at mark 4, where the walk needs
-// steps + 1, 2.5 on average), and between visits the elementwise glue
-// (where, |=, +=, the unpacking of the packed mark) ran as separate
-// launches over 655,360 int64 lanes, then one more launch read the marked
-// SA.  marked_walk walks each row in a thread: per visit it reads the mark
-// word of the row's bit first; a marked row (or the walk's last visit)
-// reads the other mark words and the mark milestone, already its final
-// row, and stops; an unmarked row reads its planes and milestone and steps.
-// So a lane reads steps + 1 rows, the final one only in its mark sectors,
-// then its SA word, and writes its text position: one launch, 16 B of I/O
-// per lane.  Lanes of a warp that finish early idle until the warp's
-// longest walk ends.
+// marked_walk: one thread per row.  Per visit it reads the mark word of
+// the row's bit first; a marked row (or the walk's last visit) reads the
+// other mark words and the mark milestone, already its final row, and
+// stops; an unmarked row reads its planes and milestones and steps.  So a
+// lane reads steps + 1 rows, the final one only in its mark sectors, then
+// its SA word, and writes its text position: one launch, 16 B of I/O per
+// lane.  Lanes of a warp that finish early idle until the warp's longest
+// walk ends; marked walks are short (at most mark_ratio - 1 steps).
 //
 // sampled_walk needs no row read to stop: the stop rule is the row's own
-// number, so each step reads only the V plane sectors and the milestone's,
-// and the end reads one SA word.  Its walks have no bound but the cycle:
-// their lengths are about geometric with mean sa_ratio - 1, with a long
-// tail, and a warp waits for its longest walk.  Bound: the distinct
-// sectors its rows' walks touch, the SA words, 16 B of I/O per lane.  This
-// is the simple first kernel; grouping rows by walk length is left for
-// later.
+// number (a mask for a power-of-two sa_ratio, else a multiplier computed on
+// the host), so each step reads only the plane and milestone sectors, and
+// the end reads one SA word.  Its walks have no bound but the cycle: their
+// lengths are about geometric with mean sa_ratio - 1 and a long tail (p99
+// 34, max 102 steps over a chr20-sized batch at sa_ratio 8).  Bound: the
+// distinct sectors the walks touch and the SA words they end on, the I/O
+// (8 B per row in, 8 B per position out; ranges: 16 B per query in), and
+// the longest walk's chain of round trips.
+//
+// Design of the sampled walks: persistent warps that refill their lanes
+// as walks end (sampled_walk_kernel).  The grid is what fits the card at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  A warp claims a
+// tile of 32 queries (one per lane) with one atomic on a cursor the caller
+// zeroes; a warp-scan of min(count, cap) numbers the tile's live slots, the
+// warp writes the tile's idle slots (coalesced), and each lane whose walk
+// ends takes the tile's next live slot (ballot and popc; its query found
+// by a 5-step binary search over the scan with shuffles), so a warp waits
+// for its longest walk only at the batch's tail.  The next tile's claim
+// and query loads are issued a tile ahead.  A lane's iteration is one
+// round trip: its row if it steps, its SA word if it ends.  A plane's
+// upper 16 B is read only when the row's word lies in it (-1.2 %).  The
+// flat-row entry is the same kernel with one live slot per row.
+//
+// Measured in turns on one H100 80GB HBM3 at 700 W (PERF.md section 6;
+// scripts/rank_kernel_study.py, the chr20 classic batch of 524,288
+// queries at cap 8, 525,360 live slots, L2 flushed): this design 0.269
+// ms.  Its byte bound is 0.026 ms (86.7 MB: the distinct sectors the walks
+// read, 16 B per query in, the int64 [B, 8] out) and its chain floor 0.085
+// ms (the longest walk, 102 steps, at 0.83 us per step of a one-row walk).
+// The others lost: (a), the parent's thread per padded row behind four
+// elementwise passes of glue, 0.78-0.79 ms; (b), the live slots compacted by
+// a prefix sum and one thread each (scripts/rank_kernel_study.py builds it
+// onto a copy of this source), 0.35 ms: its warps wait for the longest of 32
+// walks; this kernel behind the parent's glue 0.38-0.40 ms; the rows read by
+// groups of 8 lanes (each load instruction one whole 128 B span, then a
+// butterfly of shuffles handing each lane its row) 0.306 ms: fewer L1
+// wavefronts, and slower, so the L1 is not what holds the walk; 64 registers
+// forced (4 blocks per SM) 1 % slower: nor is occupancy.  What holds it: half
+// the batch takes 0.170-0.177 ms, so about 0.19 ms per batch scales with the
+// walks' 3.7 M steps of 4 sectors each (about 2.5 TB/s of scattered sector
+// reads, the rows cold after the flush), and about 0.07 ms does not (the
+// launch and the tail of long walks: emptying the 1 % of queries whose walks
+// exceed 34 steps saves 0.025-0.034 ms).  marked_walk on this LF core: 0.1317
+// ms against the parent's 0.1328 at the GRCh38-shaped site.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
 
-// w[i] for a runtime i in [0, 8), as a select chain (no local-memory array).
-__device__ __forceinline__ uint32_t pick8(const uint32_t (&w)[8], uint32_t i) {
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// w[i] for a runtime i in [0, N), as a select chain (no local-memory array).
+template <int N>
+__device__ __forceinline__ uint32_t pick(const uint32_t (&w)[N], uint32_t i) {
   uint32_t r = w[0];
 #pragma unroll
-  for (uint32_t j = 1; j < 8; ++j) r = (i == j) ? w[j] : r;
+  for (uint32_t j = 1; j < N; ++j) r = (i == j) ? w[j] : r;
   return r;
 }
 
@@ -103,53 +143,108 @@ __device__ __forceinline__ RowAt row_at(const uint32_t* blocks, int64_t nbits, i
   return {blocks + (pos >> 8) * (int64_t)row_words, local >> 5, local & 31u};
 }
 
-// LF(row): C[safe] + Occ(row, safe) - 1, or 0 when the row's symbol is the
-// sentinel (safe = the symbol, or ambiguity_idx in place of the sentinel).
+// What an LF step takes from its row's occurrence code: the safe symbol
+// (the code's symbol, or ambiguity_idx in place of the sentinel), its code,
+// C[safe] - 1, and whether the row holds the sentinel.
+struct alignas(16) CodeStep {
+  int64_t base;
+  uint32_t scode;
+  uint16_t safe;
+  uint16_t sentinel;
+};
+
+// The 2^V-entry code -> step table, in shared memory, filled by the block.
 template <int V>
-__device__ __forceinline__ int64_t lf_step(const RowAt& r, const int64_t* __restrict__ prefix_sums,
-                                           const int32_t* __restrict__ codes,
-                                           const int32_t* __restrict__ c2i, int ambiguity_idx) {
-  uint32_t planes[V][8];
+__device__ __forceinline__ void load_code_steps(CodeStep* tab, const int64_t* __restrict__ prefix_sums,
+                                                const int32_t* __restrict__ codes,
+                                                const int32_t* __restrict__ c2i, int ambiguity_idx) {
+  for (int c = threadIdx.x; c < (1 << V); c += blockDim.x) {
+    const int sym = c2i[c];
+    const int safe = sym == 0 ? ambiguity_idx : sym;
+    tab[c] = {prefix_sums[safe] - 1, (uint32_t)codes[safe], (uint16_t)safe, (uint16_t)(sym == 0)};
+  }
+  __syncthreads();
+}
+
+// A step's row in registers: the V planes and, for nucleotide, the
+// milestone sector (words 24-31) that comes in the same 128 B.  An amino
+// row's 22 milestones span sectors 5-7 (words 40-61): its step reads the
+// one milestone word in a second round trip once the planes have named
+// the symbol (0.1753 ms per 262,144-query amino batch, against 0.2137 with
+// the three sectors loaded beside the planes; PERF.md).
+template <int V>
+struct RowWords {
+  static constexpr bool kMiles = V == 3;
+  uint32_t plane[V][8];
+  uint32_t mile[kMiles ? 8 : 1];
+};
+
+// kUpperOnDemand: a plane's upper half (words 4-7) is read only when the
+// row's word is among them (the rank masks out the words above the row's):
+// 1 % faster for the sampled walks, 1.4 % slower for marked_walk, whose
+// loads follow its mark word's.
+template <int V, bool kUpperOnDemand = false>
+__device__ __forceinline__ void load_row(const RowAt& r, RowWords<V>& x) {
+  const uint4* p = reinterpret_cast<const uint4*>(r.row);
+  const bool upper = !kUpperOnDemand || r.word >= 4;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(r.row + v * 8));
-    const uint4 hi = __ldg(reinterpret_cast<const uint4*>(r.row + v * 8 + 4));
-    planes[v][0] = lo.x;
-    planes[v][1] = lo.y;
-    planes[v][2] = lo.z;
-    planes[v][3] = lo.w;
-    planes[v][4] = hi.x;
-    planes[v][5] = hi.y;
-    planes[v][6] = hi.z;
-    planes[v][7] = hi.w;
+    const uint4 lo = __ldg(p + 2 * v);
+    uint4 hi = {0u, 0u, 0u, 0u};
+    if (upper) hi = __ldg(p + 2 * v + 1);
+    x.plane[v][0] = lo.x;
+    x.plane[v][1] = lo.y;
+    x.plane[v][2] = lo.z;
+    x.plane[v][3] = lo.w;
+    x.plane[v][4] = hi.x;
+    x.plane[v][5] = hi.y;
+    x.plane[v][6] = hi.z;
+    x.plane[v][7] = hi.w;
   }
+  if constexpr (RowWords<V>::kMiles) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const uint4 m = __ldg(p + 2 * V + k);
+      x.mile[4 * k] = m.x;
+      x.mile[4 * k + 1] = m.y;
+      x.mile[4 * k + 2] = m.z;
+      x.mile[4 * k + 3] = m.w;
+    }
+  }
+}
+
+// LF(row) from its loaded words: C[safe] + Occ(row, safe) - 1, or 0 when
+// the row's symbol is the sentinel.
+template <int V>
+__device__ __forceinline__ int64_t lf_of(const RowWords<V>& x, const RowAt& r, const CodeStep* tab) {
   uint32_t code = 0;
 #pragma unroll
-  for (int v = 0; v < V; ++v) code |= ((pick8(planes[v], r.word) >> r.bit) & 1u) << v;
-  const int sym = __ldg(c2i + code);
-  const bool sentinel = sym == 0;
-  const int safe = sentinel ? ambiguity_idx : sym;
-  const uint32_t scode = (uint32_t)__ldg(codes + safe);
-
+  for (int v = 0; v < V; ++v) code |= ((pick(x.plane[v], r.word) >> r.bit) & 1u) << v;
+  const CodeStep c = tab[code];
   uint32_t occ[8];
 #pragma unroll
-  for (int w = 0; w < 8; ++w) occ[w] = 0xFFFFFFFFu;
+  for (int w = 0; w < 8; ++w) occ[w] = kFull;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     // A zero code bit matches a zero plane bit: flip the plane first.
-    const uint32_t pol = ((scode >> v) & 1u) ? 0u : 0xFFFFFFFFu;
+    const uint32_t pol = ((c.scode >> v) & 1u) ? 0u : kFull;
 #pragma unroll
-    for (int w = 0; w < 8; ++w) occ[w] &= planes[v][w] ^ pol;
+    for (int w = 0; w < 8; ++w) occ[w] &= x.plane[v][w] ^ pol;
   }
-  const uint32_t in_word = 0xFFFFFFFFu >> (31u - r.bit);
+  const uint32_t in_word = kFull >> (31u - r.bit);
   uint32_t count = 0;
 #pragma unroll
   for (uint32_t w = 0; w < 8; ++w) {
-    const uint32_t m = w < r.word ? 0xFFFFFFFFu : (w == r.word ? in_word : 0u);
+    const uint32_t m = w < r.word ? kFull : (w == r.word ? in_word : 0u);
     count += __popc(occ[w] & m);
   }
-  const int64_t rank = (int64_t)__ldg(r.row + V * 8 + safe) + count;
-  return sentinel ? 0 : prefix_sums[safe] + rank - 1;
+  uint32_t mile;
+  if constexpr (RowWords<V>::kMiles) {
+    mile = pick(x.mile, c.safe);
+  } else {
+    mile = __ldg(r.row + V * 8 + c.safe);
+  }
+  return c.sentinel ? 0 : c.base + (int64_t)mile + count;
 }
 
 // The row's mark bit, and into mark_rank the marked rows strictly before
@@ -167,31 +262,15 @@ __device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, uin
   mark_rank = __ldg(r.row + mark_offset + 8);
 #pragma unroll
   for (uint32_t w = 0; w < 8; ++w) {
-    const uint32_t m = w < r.word ? 0xFFFFFFFFu : (w == r.word ? before : 0u);
+    const uint32_t m = w < r.word ? kFull : (w == r.word ? before : 0u);
     mark_rank += __popc(marks[w] & m);
   }
-  return (pick8(marks, r.word) >> r.bit) & 1u;
-}
-
-template <int V>
-__global__ void backstep_kernel(const uint32_t* __restrict__ blocks, int64_t nbits, int row_words,
-                                const int64_t* __restrict__ prefix_sums,
-                                const int32_t* __restrict__ codes,
-                                const int32_t* __restrict__ c2i, int mark_offset,
-                                int ambiguity_idx, const int64_t* __restrict__ rows, int64_t n,
-                                int64_t* __restrict__ stepped, uint32_t* __restrict__ mark) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const RowAt r = row_at(blocks, nbits, row_words, rows[i]);
-  stepped[i] = lf_step<V>(r, prefix_sums, codes, c2i, ambiguity_idx);
-  uint32_t mark_rank;
-  const uint32_t mark_bit = mark_of(r, mark_offset, mark_rank);
-  mark[i] = (mark_rank << 1) | mark_bit;
+  return (pick(marks, r.word) >> r.bit) & 1u;
 }
 
 // What a walk reads besides its rows: the fused rows, the LF step's tables
 // and the SA values it ends on (the marked SA values for marked_walk, the
-// row-sampled SA for sampled_walk).
+// row-sampled SA for the sampled walks).
 struct WalkTables {
   const uint32_t* blocks;
   int64_t nbits;
@@ -205,101 +284,224 @@ struct WalkTables {
   int64_t bwt_len;
 };
 
-// marked_walk's stop rule: the row's mark bit (its mark word is read first,
-// so a marked row skips its planes), or the walk's last visit (steps ==
-// mark_ratio - 1).  The SA index is the final row's mark rank, 31 bits of
-// it as backstep packs it, clamped into the marked SA.
-struct MarkedStop {
-  int mark_offset;
-  int mark_ratio;
-
-  __device__ __forceinline__ int64_t start(const WalkTables&, int64_t row) const { return row; }
-  __device__ __forceinline__ int64_t next(const WalkTables&, int64_t row) const { return row; }
-  __device__ __forceinline__ bool stops(const WalkTables& t, int64_t pos, int64_t steps,
-                                        int64_t& sa_idx) const {
-    const RowAt r = row_at(t.blocks, t.nbits, t.row_words, pos);
-    const uint32_t word = __ldg(r.row + mark_offset + r.word);
-    if (!((word >> r.bit) & 1u) && steps + 1 < mark_ratio) return false;
-    uint32_t mark_rank;
-    mark_of(r, mark_offset, mark_rank);
-    const int64_t idx = (int64_t)(mark_rank & 0x7FFFFFFFu);
-    sa_idx = idx >= t.sa_len ? t.sa_len - 1 : idx;
-    return true;
-  }
-};
-
-// sampled_walk's stop rule (the reference's row sampling): a row that is a
-// multiple of sa_ratio, whose SA value is sa[row / sa_ratio].  Rows are
-// clamped into [0, bwt_len) at the start and after every step, so the
-// index stays inside the sampled SA; positions fit 32 bits (bwt_len <
-// 2^32), so the modulo is a 32-bit one.  A walk that has taken bwt_len
-// steps without reaching a sampled row (no valid index allows it: row 0 is
-// sampled and LF is one cycle over all rows) stops with sa_idx = -1.
-struct SampledStop {
-  uint32_t sa_ratio;
-
-  __device__ __forceinline__ int64_t clamp(const WalkTables& t, int64_t row) const {
-    return row < 0 ? 0 : (row >= t.bwt_len ? t.bwt_len - 1 : row);
-  }
-  __device__ __forceinline__ int64_t start(const WalkTables& t, int64_t row) const { return clamp(t, row); }
-  __device__ __forceinline__ int64_t next(const WalkTables& t, int64_t row) const { return clamp(t, row); }
-  __device__ __forceinline__ bool stops(const WalkTables& t, int64_t pos, int64_t steps,
-                                        int64_t& sa_idx) const {
-    const uint32_t p = (uint32_t)pos;
-    const uint32_t q = p / sa_ratio;
-    if (p == q * sa_ratio) {
-      sa_idx = q;
-      return true;
-    }
-    if (steps >= t.bwt_len) {
-      sa_idx = -1;
-      return true;
-    }
-    return false;
-  }
-};
-
-// text_pos[i] of row rows[i]: LF steps (lf_step) until the stop rule holds,
-// then sa = t.sa[sa_idx] and text_pos = sa + steps, less bwt_len when that
-// reaches bwt_len; -1 when the stop rule gives no SA index.
-template <int V, class Stop>
-__global__ void walk_kernel(const WalkTables t, const Stop stop, const int64_t* __restrict__ rows,
-                            int64_t n, int64_t* __restrict__ text_pos) {
+template <int V>
+__global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64_t* __restrict__ rows, int64_t n,
+                                int64_t* __restrict__ stepped, uint32_t* __restrict__ mark) {
+  __shared__ CodeStep tab[1 << V];
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  int64_t pos = stop.start(t, rows[i]);
-  int64_t steps = 0;
-  int64_t sa_idx = 0;
-  while (!stop.stops(t, pos, steps, sa_idx)) {
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
+  RowWords<V> x;
+  load_row(r, x);
+  uint32_t mark_rank;
+  const uint32_t mark_bit = mark_of(r, mark_offset, mark_rank);
+  stepped[i] = lf_of(x, r, tab);
+  mark[i] = (mark_rank << 1) | mark_bit;
+}
+
+// text_pos[i] of row rows[i] by the marked walk: a row is final when its
+// mark bit is set (its mark word is read first, so a marked row skips its
+// planes) or on the walk's last visit (steps == mark_ratio - 1); the SA
+// index is the final row's mark rank, 31 bits of it as backstep packs it,
+// clamped into the marked SA; text_pos = sa + steps, less bwt_len when
+// that reaches it.
+template <int V>
+__global__ void marked_walk_kernel(const WalkTables t, int mark_offset, int mark_ratio,
+                                   const int64_t* __restrict__ rows, int64_t n, int64_t* __restrict__ text_pos) {
+  __shared__ CodeStep tab[1 << V];
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int64_t pos = rows[i];
+  for (int steps = 0;; ++steps) {
     const RowAt r = row_at(t.blocks, t.nbits, t.row_words, pos);
-    pos = stop.next(t, lf_step<V>(r, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx));
+    const uint32_t word = __ldg(r.row + mark_offset + r.word);
+    if (((word >> r.bit) & 1u) || steps + 1 >= mark_ratio) {
+      uint32_t mark_rank;
+      mark_of(r, mark_offset, mark_rank);
+      const int64_t idx = (int64_t)(mark_rank & 0x7FFFFFFFu);
+      const int64_t s = (int64_t)__ldg(t.sa + (idx >= t.sa_len ? t.sa_len - 1 : idx)) + steps;
+      text_pos[i] = s >= t.bwt_len ? s - t.bwt_len : s;
+      return;
+    }
+    RowWords<V> x;
+    load_row(r, x);
+    pos = lf_of(x, r, tab);
+  }
+}
+
+// The reference's row sampling: a row that is a multiple of sa_ratio has
+// its SA value at sa[row / sa_ratio].  A power-of-two ratio takes a mask
+// and a shift; any other the multiplier M = ceil(2^64 / sa_ratio), exact
+// for every 32-bit row and ratio (Lemire, Kaser and Kurz, "Faster remainder
+// by direct computation", 2019): row % sa_ratio == 0 iff row * M mod 2^64
+// <= M - 1, and row / sa_ratio = (row * M) >> 64.
+struct RowSampling {
+  uint64_t magic;  // 0 for a power of two
+  uint32_t mask;
+  uint32_t shift;
+
+  static RowSampling of(uint32_t ratio) {
+    if (ratio & (ratio - 1)) return {UINT64_MAX / ratio + 1, 0, 0};
+    uint32_t shift = 0;
+    while ((1u << shift) < ratio) ++shift;
+    return {0, ratio - 1, shift};
+  }
+  __device__ __forceinline__ bool sampled(uint32_t p) const {
+    return magic ? (uint64_t)p * magic <= magic - 1 : (p & mask) == 0;
+  }
+  __device__ __forceinline__ uint32_t index(uint32_t p) const {
+    return magic ? (uint32_t)__umul64hi(magic, (uint64_t)p) : p >> shift;
+  }
+};
+
+// A walk's text position: its final row's SA value plus its steps, less
+// bwt_len when that reaches it.
+__device__ __forceinline__ int64_t text_pos_of(uint32_t sa, uint32_t steps, int64_t bwt_len) {
+  const int64_t s = (int64_t)sa + steps;
+  return s >= bwt_len ? s - bwt_len : s;
+}
+
+__device__ __forceinline__ uint32_t clamp_row(int64_t row, int64_t bwt_len) {
+  return (uint32_t)(row < 0 ? 0 : (row >= bwt_len ? bwt_len - 1 : row));
+}
+
+// One lane's step of a sampled walk at row pos: one round trip, its SA
+// word if the row is sampled (the walk ends: *out gets its text position),
+// else its row (pos and steps advance).  A walk still going after bwt_len
+// steps ends with -1 (no valid index allows it: row 0 is sampled and LF is
+// one cycle over all rows).  Returns whether the walk ended.
+template <int V>
+__device__ __forceinline__ bool sampled_step(const WalkTables& t, const RowSampling& smp, const CodeStep* tab,
+                                             uint32_t& pos, uint32_t& steps, int64_t* out) {
+  const bool ends = smp.sampled(pos);
+  const bool stepping = !ends && (int64_t)steps < t.bwt_len;
+  uint32_t sa = 0;
+  RowAt r{};
+  RowWords<V> x;
+  if (ends) sa = __ldg(t.sa + smp.index(pos));
+  if (stepping) {
+    r = row_at(t.blocks, t.nbits, t.row_words, pos);
+    load_row<V, true>(r, x);
+  }
+  if (stepping) {
+    pos = clamp_row(lf_of(x, r, tab), t.bwt_len);
     ++steps;
+    return false;
   }
-  if (sa_idx < 0) {
-    text_pos[i] = -1;
-    return;
-  }
-  const int64_t s = (int64_t)__ldg(t.sa + sa_idx) + steps;
-  text_pos[i] = s >= t.bwt_len ? s - t.bwt_len : s;
+  *out = ends ? text_pos_of(sa, steps, t.bwt_len) : -1;
+  return true;
 }
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-template <class Stop>
-int launch_walk(const WalkTables& t, int nplanes, const Stop& stop, const void* rows, int64_t n,
-                void* text_pos, void* stream) {
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (nplanes == 3) {
-      walk_kernel<3, Stop><<<grid, kThreads, 0, st>>>(t, stop, (const int64_t*)rows, n, (int64_t*)text_pos);
-    } else if (nplanes == 5) {
-      walk_kernel<5, Stop><<<grid, kThreads, 0, st>>>(t, stop, (const int64_t*)rows, n, (int64_t*)text_pos);
-    } else {
-      return (int)cudaErrorInvalidValue;
+// A tile of 32 queries, one per lane: the lane's query start and its live
+// slots, min(count, cap) (one row each for the flat-row entry).
+struct TileQuery {
+  int64_t start;
+  uint32_t live;
+};
+
+template <bool kRows>
+__device__ __forceinline__ TileQuery tile_query(int64_t tile, const int64_t* __restrict__ starts,
+                                                const int64_t* __restrict__ counts, int64_t nq, int cap,
+                                                unsigned lane) {
+  const int64_t q = tile * 32 + lane;
+  if (q >= nq) return {0, 0};
+  if (kRows) return {starts[q], 1};
+  const int64_t c = counts[q];
+  return {starts[q], (uint32_t)(c < 0 ? 0 : (c > cap ? cap : c))};
+}
+
+// The sampled walks of nq queries' live slots into out[nq, cap] (flat rows:
+// kRows, starts = rows, cap = 1), by persistent warps that refill lanes as
+// walks end (the head of this file).  cursor: one 64-bit counter, zero.
+template <int V, bool kRows>
+__global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
+    const WalkTables t, const RowSampling smp, const int64_t* __restrict__ starts,
+    const int64_t* __restrict__ counts, int64_t nq, int cap, unsigned long long* __restrict__ cursor,
+    int64_t* __restrict__ out) {
+  __shared__ CodeStep tab[1 << V];
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t ntiles = (nq + 31) >> 5;
+  // An idle slot's value: the walk of row 0, which is sampled.
+  const int64_t idle = kRows ? 0 : text_pos_of(__ldg(t.sa), 0, t.bwt_len);
+
+  // The next tile (claimed, its queries loading) and the claim of the one
+  // after it run a tile ahead of the tile being handed out.
+  unsigned long long claim = 0;
+  if (lane == 0) claim = atomicAdd(cursor, 1ull);
+  int64_t next_tile = (int64_t)__shfl_sync(kFull, claim, 0);
+  TileQuery next_q = tile_query<kRows>(next_tile, starts, counts, nq, cap, lane);
+  if (lane == 0) claim = atomicAdd(cursor, 1ull);
+
+  int64_t tile = 0;
+  TileQuery cur = {0, 0};
+  uint32_t incl = 0;       // live slots of the tile's queries up to this lane's
+  uint32_t tile_live = 0;  // live slots of the tile
+  uint32_t handed = 0;     // of them, handed to lanes
+  bool more = true;        // tiles left to claim
+  bool walking = false;
+  uint32_t pos = 0, steps = 0;
+  int64_t slot = 0;
+  for (;;) {
+    unsigned free_lanes = __ballot_sync(kFull, !walking);
+    while (free_lanes && more) {
+      if (handed == tile_live) {
+        if (next_tile >= ntiles) {
+          more = false;
+          break;
+        }
+        tile = next_tile;
+        cur = next_q;
+        incl = cur.live;
+#pragma unroll
+        for (unsigned d = 1; d < 32; d <<= 1) {
+          const uint32_t v = __shfl_up_sync(kFull, incl, d);
+          if (lane >= d) incl += v;
+        }
+        tile_live = __shfl_sync(kFull, incl, 31);
+        handed = 0;
+        if (!kRows) {
+          // The tile's idle slots, in order: a coalesced pass of cap stores per lane.
+          for (int s = lane; s < 32 * cap; s += 32) {
+            const unsigned ql = (unsigned)(s / cap);
+            const uint32_t live = __shfl_sync(kFull, cur.live, ql);
+            if (tile * 32 + ql < nq && (uint32_t)(s - (int)ql * cap) >= live) out[tile * 32 * cap + s] = idle;
+          }
+        }
+        next_tile = (int64_t)__shfl_sync(kFull, claim, 0);
+        next_q = tile_query<kRows>(next_tile, starts, counts, nq, cap, lane);
+        if (lane == 0) claim = atomicAdd(cursor, 1ull);
+        continue;
+      }
+      // Free lanes take the tile's next live slots in lane order; slot
+      // `want` belongs to the first query whose inclusive count exceeds it.
+      const uint32_t want = handed + __popc(free_lanes & below);
+      unsigned q = 0;
+#pragma unroll
+      for (unsigned s = 16; s; s >>= 1) {
+        if (__shfl_sync(kFull, incl, q + s - 1) <= want) q += s;
+      }
+      const uint32_t before = __shfl_sync(kFull, incl - cur.live, q);
+      const int64_t start = __shfl_sync(kFull, cur.start, q);
+      if (!walking && want < tile_live) {
+        const uint32_t j = want - before;
+        pos = clamp_row(start + j, t.bwt_len);
+        steps = 0;
+        slot = (tile * 32 + q) * cap + j;
+        walking = true;
+      }
+      handed = min(tile_live, handed + __popc(free_lanes));
+      free_lanes = __ballot_sync(kFull, !walking);
     }
+    if (!__any_sync(kFull, walking)) break;
+    if (walking && sampled_step<V>(t, smp, tab, pos, steps, out + slot)) walking = false;
   }
-  return (int)cudaGetLastError();
 }
 
 WalkTables walk_tables(const void* blocks, int64_t num_blocks, int row_words, const void* prefix_sums,
@@ -310,31 +512,62 @@ WalkTables walk_tables(const void* blocks, int64_t num_blocks, int row_words, co
           bwt_len};
 }
 
+unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+constexpr int kMaxDevices = 64;
+
+// The persistent grid: as many blocks as fit the card at once, no more
+// than the tiles need.  `fit` caches the card's count per device, so the
+// runtime is asked once per kernel and device, not on every launch.
+template <class Kernel>
+unsigned persistent_grid(Kernel kernel, int device, std::atomic<int> (&fit)[kMaxDevices], int64_t nq) {
+  int resident = device < kMaxDevices ? fit[device].load(std::memory_order_relaxed) : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    if (device < kMaxDevices) fit[device].store(resident, std::memory_order_relaxed);
+  }
+  const int64_t need = ((nq + 31) / 32 + kWarps - 1) / kWarps;
+  return (unsigned)(need < resident ? need : resident);
+}
+
+template <int V, bool kRows>
+void launch_sampled(int device, const WalkTables& t, uint32_t sa_ratio, const void* starts, const void* counts,
+                    int64_t nq, int cap, void* cursor, void* out, cudaStream_t st) {
+  static std::atomic<int> fit[kMaxDevices];
+  auto kernel = sampled_walk_kernel<V, kRows>;
+  kernel<<<persistent_grid(kernel, device, fit, nq), kThreads, 0, st>>>(
+      t, RowSampling::of(sa_ratio), (const int64_t*)starts, (const int64_t*)counts, nq, cap,
+      (unsigned long long*)cursor, (int64_t*)out);
+}
+
+void set_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+}
+
 }  // namespace
 
-// Launches on `stream` (the caller's current PyTorch stream) and returns
-// cudaGetLastError() so a refused launch is reported to the caller.
+// Each entry launches on `stream` (the caller's current PyTorch stream) and
+// returns cudaGetLastError() so a refused launch is reported to the caller.
 extern "C" int awry_backstep(int device, const void* blocks, int64_t num_blocks, int row_words,
                              int nplanes, const void* prefix_sums, const void* codes,
                              const void* c2i, int mark_offset, int ambiguity_idx,
                              const void* rows, int64_t n, void* stepped, void* mark,
                              void* stream) {
-  int cur = -1;
-  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+  set_device(device);
+  const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                   nullptr, 0, 0);
+  cudaStream_t st = (cudaStream_t)stream;
   if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    const int64_t nbits = num_blocks * 256;
-    cudaStream_t st = (cudaStream_t)stream;
     if (nplanes == 3) {
-      backstep_kernel<3><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)blocks, nbits, row_words, (const int64_t*)prefix_sums,
-          (const int32_t*)codes, (const int32_t*)c2i, mark_offset, ambiguity_idx,
-          (const int64_t*)rows, n, (int64_t*)stepped, (uint32_t*)mark);
+      backstep_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                             (int64_t*)stepped, (uint32_t*)mark);
     } else if (nplanes == 5) {
-      backstep_kernel<5><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)blocks, nbits, row_words, (const int64_t*)prefix_sums,
-          (const int32_t*)codes, (const int32_t*)c2i, mark_offset, ambiguity_idx,
-          (const int64_t*)rows, n, (int64_t*)stepped, (uint32_t*)mark);
+      backstep_kernel<5><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                             (int64_t*)stepped, (uint32_t*)mark);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -348,21 +581,65 @@ extern "C" int awry_marked_walk(int device, const void* blocks, int64_t num_bloc
                                 int mark_ratio, const void* sampled_sa, int64_t sa_len,
                                 int64_t bwt_len, const void* rows, int64_t n, void* text_pos,
                                 void* stream) {
-  int cur = -1;
-  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+  set_device(device);
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  return launch_walk(t, nplanes, MarkedStop{mark_offset, mark_ratio}, rows, n, text_pos, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0) {
+    if (nplanes == 3) {
+      marked_walk_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, mark_ratio, (const int64_t*)rows,
+                                                                n, (int64_t*)text_pos);
+    } else if (nplanes == 5) {
+      marked_walk_kernel<5><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, mark_ratio, (const int64_t*)rows,
+                                                                n, (int64_t*)text_pos);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
+// The flat-row walk (rows: int64[n]) and the range-fed walk (starts,
+// counts: int64[nq]; out int64[nq, cap]); cursor: a zeroed 64-bit counter.
 extern "C" int awry_sampled_walk(int device, const void* blocks, int64_t num_blocks, int row_words,
                                  int nplanes, const void* prefix_sums, const void* codes,
-                                 const void* c2i, int ambiguity_idx, int sa_ratio,
+                                 const void* c2i, int ambiguity_idx, uint32_t sa_ratio,
                                  const void* sampled_sa, int64_t sa_len, int64_t bwt_len,
-                                 const void* rows, int64_t n, void* text_pos, void* stream) {
-  int cur = -1;
-  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+                                 const void* rows, int64_t n, void* cursor, void* text_pos, void* stream) {
+  set_device(device);
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  return launch_walk(t, nplanes, SampledStop{(uint32_t)sa_ratio}, rows, n, text_pos, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0) {
+    if (nplanes == 3) {
+      launch_sampled<3, true>(device, t, sa_ratio, rows, nullptr, n, 1, cursor, text_pos, st);
+    } else if (nplanes == 5) {
+      launch_sampled<5, true>(device, t, sa_ratio, rows, nullptr, n, 1, cursor, text_pos, st);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int awry_sampled_walk_ranges(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                        int nplanes, const void* prefix_sums, const void* codes,
+                                        const void* c2i, int ambiguity_idx, uint32_t sa_ratio,
+                                        const void* sampled_sa, int64_t sa_len, int64_t bwt_len,
+                                        const void* starts, const void* counts, int64_t nq, int cap,
+                                        void* cursor, void* out, void* stream) {
+  set_device(device);
+  const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
+                                   ambiguity_idx, sampled_sa, sa_len, bwt_len);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nq > 0) {
+    if (nplanes == 3) {
+      launch_sampled<3, false>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
+    } else if (nplanes == 5) {
+      launch_sampled<5, false>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
 }

@@ -433,13 +433,21 @@ class FmQueryEngine:
     def _assemble_flat_positions(self, counts, text_pos, starts, offsets, cap):
         """Ragged assembly of the walked positions; queries over ``cap``
         expand their BWT rows on the device (from range start + cumulative
-        count pairs) and walk them through lf_walk."""
+        count pairs) and walk them through lf_walk.  On an index without
+        marks a position read here that is -1 (a walk that could not end)
+        raises RuntimeError: the range-fed walk leaves that check to this
+        point, where the host waits on the batch anyway."""
         counts = counts.astype(np.int64)
         flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
         over = counts > cap
         nov = np.where(over, 0, counts)
         valid = np.arange(cap, dtype=np.int64)[None, :] < nov[:, None]
         vals = text_pos[valid].astype(np.int64)
+        if not self.device_index.has_marks and vals.size and vals.min() < 0:
+            raise RuntimeError(
+                f"sampled_walk_ranges: a row took {self.device_index.bwt_len} LF steps without reaching a "
+                "sampled row (a corrupt index)"
+            )
         within = np.arange(vals.shape[0], dtype=np.int64) - np.repeat(
             np.concatenate(([0], np.cumsum(nov)[:-1])), nov
         )

@@ -22,7 +22,10 @@ it replaces, its bound and its design):
 * ``sampled_walk(blocks, rows, prefix_sums, codes, c2i, nplanes,
   ambiguity_idx, sa_ratio, sampled_sa, bwt_len)`` - the reference's
   row-sampled LF walk of each row to its text position in one launch (the
-  locate walk of an index without marks, loaded from a ``.awry`` file).
+  locate walk of an index without marks, loaded from a ``.awry`` file);
+  ``sampled_walk_ranges(blocks, starts, counts, cap, ...)`` the same walks
+  fed by query ranges into a ``[B, cap]`` output, as the classic path asks
+  for them (one kernel for both, counted under ``sampled_walk``).
 
 Tables are int32 tensors holding uint32 bit patterns; positions are int64;
 outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``), but
@@ -30,8 +33,8 @@ for backstep's stepped rows and the walks' text positions, which are int64
 positions.
 
 ``chip_smoke.py`` holds every kernel against its plain version on the card;
-``scripts/rank_kernel_study.py --kernels window_read,marked_walk`` (or
-``occ_pair,occ``) times them against other builds of their sources.
+``scripts/rank_kernel_study.py --kernels window_read,marked_walk,sampled_walk``
+(or ``occ_pair,occ``) times them against other builds of their sources.
 
 A wrapper takes its plain version only when its inputs are CPU tensors; on
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -141,8 +144,11 @@ def _lib():
             lib.awry_backstep.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, p, i64, p, p, p]
             lib.awry_marked_walk.restype = i32
             lib.awry_marked_walk.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, i32, p, i64, i64, p, i64, p, p]
+            walk = [i32, p, i64, i32, i32, p, p, p, i32, ctypes.c_uint32, p, i64, i64]
             lib.awry_sampled_walk.restype = i32
-            lib.awry_sampled_walk.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, p, i64, i64, p, i64, p, p]
+            lib.awry_sampled_walk.argtypes = [*walk, p, i64, p, p, p]
+            lib.awry_sampled_walk_ranges.restype = i32
+            lib.awry_sampled_walk_ranges.argtypes = [*walk, p, p, i64, i32, p, p, p]
             _lib_handle = lib
         return _lib_handle
 
@@ -545,28 +551,48 @@ def sampled_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambi
     return out
 
 
+def _check_sampled_args(kernel: str, blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int,
+                        sampled_sa, bwt_len: int) -> None:
+    """The checks of the sampled walks' CUDA entries (``rows``: the rows or
+    the range starts)."""
+    _check_walk_args(kernel, blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx)
+    _check("sampled_sa", sampled_sa, torch.int32, 1)
+    if bwt_len > blocks.shape[0] * 256:
+        raise ValueError(f"{kernel}: bwt_len={bwt_len} exceeds the {blocks.shape[0]} blocks")
+
+
+def _check_sampling(kernel: str, sa_ratio: int, sampled_sa, bwt_len: int) -> None:
+    if not 1 <= bwt_len < 2**32 or not 1 <= sa_ratio < 2**32 or sampled_sa.shape[0] != -(-bwt_len // sa_ratio):
+        raise ValueError(f"{kernel}: sa_ratio={sa_ratio}, {sampled_sa.shape[0]} SA values, bwt_len={bwt_len}")
+
+
+def _walk_entry_args(blocks, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int, sa_ratio: int, sampled_sa,
+                     bwt_len: int) -> tuple:
+    """The leading arguments the sampled walks' C entries share."""
+    return (blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
+            prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), ambiguity_idx, sa_ratio,
+            sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len)
+
+
 def sampled_walk_launch(blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int, sa_ratio: int,
                         sampled_sa, bwt_len: int) -> torch.Tensor:
     """sampled_walk without its check of the walks' ends: one launch on
     CUDA tensors (the plain version on CPU tensors), -1 for a row still
     walking after bwt_len steps, no device sync."""
-    if bwt_len < 1 or bwt_len >= 2**32 or sa_ratio < 1 or sampled_sa.shape[0] != -(-bwt_len // sa_ratio):
-        raise ValueError(f"sampled_walk: sa_ratio={sa_ratio}, {sampled_sa.shape[0]} SA values, bwt_len={bwt_len}")
+    _check_sampling("sampled_walk", sa_ratio, sampled_sa, bwt_len)
     if _on_cpu(blocks, rows, prefix_sums, codes, c2i, sampled_sa):
         return sampled_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio,
                                   sampled_sa, bwt_len)
-    _check_walk_args("sampled_walk", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx)
-    _check("sampled_sa", sampled_sa, torch.int32, 1)
-    if bwt_len > blocks.shape[0] * 256:
-        raise ValueError(f"sampled_walk: bwt_len={bwt_len} exceeds the {blocks.shape[0]} blocks")
+    _check_sampled_args("sampled_walk", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sampled_sa,
+                        bwt_len)
     r = rows.shape[0]
     out = torch.empty(r, dtype=torch.int64, device=blocks.device)
     if r:
+        cursor = torch.zeros(1, dtype=torch.int64, device=blocks.device)
         rc = _lib().awry_sampled_walk(
-            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
-            prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), ambiguity_idx, sa_ratio,
-            sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len, rows.data_ptr(), r, out.data_ptr(),
-            _stream(blocks.device),
+            *_walk_entry_args(blocks, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
+                              bwt_len),
+            rows.data_ptr(), r, cursor.data_ptr(), out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "sampled_walk")
         sampled_walk.launches += 1
@@ -579,7 +605,7 @@ def sampled_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambiguity_
     walk (awry_tpu/ops/locate.py _row_sampled_walk).
 
     Rows are clamped into [0, bwt_len); while ``row % sa_ratio != 0`` a
-    thread takes one LF step (sentinel rows step to 0; the stepped row is
+    walk takes one LF step (sentinel rows step to 0; the stepped row is
     clamped likewise) and counts it; then ``sa = sampled_sa[row //
     sa_ratio]`` and the result is ``sa + steps``, less ``bwt_len`` when that
     reaches it.  blocks .. ambiguity_idx as for backstep (the mark words are
@@ -598,3 +624,60 @@ def sampled_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambiguity_
 
 
 sampled_walk.launches = 0
+
+
+def slot_rows(starts: torch.Tensor, counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """int64[B, cap]: row ``starts[q] + j`` in slot (q, j) for j <
+    min(counts[q], cap), row 0 in every other slot (the classic path's
+    padded walk rows)."""
+    offs = torch.arange(cap, device=starts.device)
+    valid = offs[None, :] < counts.clamp_max(cap)[:, None]
+    return torch.where(valid, starts[:, None] + offs[None, :], 0)
+
+
+def sampled_walk_ranges_plain(blocks, starts, counts, cap: int, prefix_sums, codes, c2i, nplanes: int,
+                              ambiguity_idx: int, sa_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """Plain version of sampled_walk_ranges: the padded rows (slot_rows)
+    walked by sampled_walk_plain."""
+    rows = slot_rows(starts, counts, cap).reshape(-1)
+    return sampled_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
+                              bwt_len).reshape(-1, cap)
+
+
+def sampled_walk_ranges(blocks, starts, counts, cap: int, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int,
+                        sa_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """int64[B, cap]: slot (q, j) holds the row-sampled walk of row
+    ``starts[q] + j`` for j < min(counts[q], cap), and the walk of row 0
+    (its SA value) in every other slot: sampled_walk over slot_rows, in one
+    launch that walks only the live slots (counted under
+    ``sampled_walk.launches``).
+
+    starts, counts: int64[B] (counts 0 for an empty range; a query over
+    ``cap`` fills its cap slots); the rest as for sampled_walk.  A walk
+    still going after bwt_len steps writes -1 and nothing raises here: the
+    caller checks the positions it reads (the engine does so at assembly),
+    so no device sync sits between the launch and the results' copy."""
+    _check_sampling("sampled_walk_ranges", sa_ratio, sampled_sa, bwt_len)
+    if not 1 <= cap <= 1 << 20:
+        raise ValueError(f"sampled_walk_ranges: cap={cap}")
+    if _on_cpu(blocks, starts, counts, prefix_sums, codes, c2i, sampled_sa):
+        return sampled_walk_ranges_plain(blocks, starts, counts, cap, prefix_sums, codes, c2i, nplanes,
+                                         ambiguity_idx, sa_ratio, sampled_sa, bwt_len)
+    _check_sampled_args("sampled_walk_ranges", blocks, starts, prefix_sums, codes, c2i, nplanes, ambiguity_idx,
+                        sampled_sa, bwt_len)
+    _check("counts", counts, torch.int64, 1)
+    b = starts.shape[0]
+    if counts.shape[0] != b:
+        raise ValueError(f"sampled_walk_ranges: {b} starts, {counts.shape[0]} counts, cap={cap}")
+    out = torch.empty((b, cap), dtype=torch.int64, device=blocks.device)
+    if b:
+        cursor = torch.zeros(1, dtype=torch.int64, device=blocks.device)
+        rc = _lib().awry_sampled_walk_ranges(
+            *_walk_entry_args(blocks, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
+                              bwt_len),
+            starts.data_ptr(), counts.data_ptr(), b, cap, cursor.data_ptr(), out.data_ptr(),
+            _stream(blocks.device),
+        )
+        _launch_check(rc, "sampled_walk_ranges")
+        sampled_walk.launches += 1
+    return out

@@ -11,9 +11,13 @@ marked_walk_sweep).  At mark ratio 1 every row is marked and the mark rank
 is the row: the walk is one SA read.
 
 An index without marks (loaded from a ``.awry`` file) locates by the
-reference's row-sampled walk instead: one ``sampled_walk`` launch, each row
-walked by LF steps until its row is a multiple of sa_ratio, whose SA value
-``sampled_sa`` holds (awry_tpu/ops/locate.py _row_sampled_walk).
+reference's row-sampled walk instead: each row walked by LF steps until its
+row is a multiple of sa_ratio, whose SA value ``sampled_sa`` holds
+(awry_tpu/ops/locate.py _row_sampled_walk).  ``lf_walk`` walks given rows
+in one ``sampled_walk`` launch; the classic path's capped locate walks its
+ranges' live slots in one ``sampled_walk_ranges`` launch, with no device
+sync: a walk that cannot end (a corrupt index) writes -1, which the
+engine's assembly refuses.
 
 Ragged per-query outputs are two-phase: counts -> offsets -> flat fill.
 """
@@ -56,16 +60,20 @@ def count_locate_capped_t(
     """Full-depth count + up to ``cap`` hits per query in one pass.
 
     Returns (counts int64[B], text_pos int64[B, cap], starts, ends); entries
-    of text_pos past counts[b] are meaningless.  Queries with more than
-    ``cap`` hits report their true count and their range, so the engine
-    expands their remaining rows without a second search."""
+    of text_pos past counts[b] are meaningless; on an index without marks a
+    -1 among the others marks a walk that could not end (a corrupt index).
+    Queries with more than ``cap`` hits report their true count and their
+    range, so the engine expands their remaining rows without a second
+    search."""
     starts, ends = search_ranges_t(
         dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor
     )
     counts = counts_from_ranges(starts, ends)
-    offs = torch.arange(cap, device=qt.device)
-    rows = starts[:, None] + offs[None, :]  # [B, cap]
-    valid = offs[None, :] < counts.clamp_max(cap)[:, None]
-    flat_rows = torch.where(valid, rows, 0).reshape(-1)
-    text_pos = lf_walk(dev, flat_rows)
+    if not dev.has_marks:
+        text_pos = kernels.sampled_walk_ranges(
+            dev.blocks, starts, counts, cap, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
+            dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.sampled_sa, dev.bwt_len,
+        )
+        return counts, text_pos, starts, ends
+    text_pos = lf_walk(dev, kernels.slot_rows(starts, counts, cap).reshape(-1))
     return counts, text_pos.reshape(-1, cap), starts, ends

@@ -86,11 +86,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    re-derived through occ, launch counts set to 0 just before), the table
    bit-equal to the built one.  Bytes and seconds of each.
 14. The mark-less path: the .awry-loaded index (64 Mbp, k = 13, SA ratio 8)
-   served classic-only, its locate by the row-sampled walk (sampled_walk),
-   over phase 7's batches with the counts set to 0 just before: the same
-   counts and (record, local) hits as phase 7, every drawn read at its own
-   position; the report of phase 6, with sampled_walk's time beside its
-   bound and plain version and its walk-length distribution.
+   served classic-only, its locate by the row-sampled walk (one
+   sampled_walk_ranges launch per batch over its query ranges, and the flat
+   sampled_walk for the over-cap expansion), over phase 7's batches with the
+   counts set to 0 just before: the same counts and (record, local) hits as
+   phase 7, every drawn read at its own position; the report of phase 6,
+   with the range-fed walk's time beside its bound, its plain version, the
+   composition it replaced (the padded rows walked by the flat entry, as
+   one function to int64[B, cap]), its chain floor (the longest walk at the
+   per-step time of a one-row walk) and its walk-length distribution.
 15. Facade and CLI, counts set to 0 just before: FmIndex.load of the .npz on
    the card, count_string / locate_string of 64 drawn reads equal to phase
    7's answers, backstep and update_range_with_symbol on a few rows against
@@ -202,9 +206,12 @@ REPLACES = {
     "marked_walk": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored through marked_walk_sweep (:883)
     "sampled_walk": "awry_tpu/ops/locate.py:99",  # _row_sampled_walk: a while_loop of backstep gathers
 }
-# Arguments of each kernel that carry per-request data (recorded as copies).
+# The wrappers whose calls a path's first batch records: every kernel's, and
+# sampled_walk_ranges (the range-fed entry of sampled_walk, counted under it).
+RECORDED = (*KERNELS, "sampled_walk_ranges")
+# Arguments of each wrapper that carry per-request data (recorded as copies).
 REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2), "marked_walk": (1,),
-                "sampled_walk": (1,)}
+                "sampled_walk": (1,), "sampled_walk_ranges": (1, 2)}
 WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for marked_walk
 
 # Phase 15: an E. coli-sized text (bench.py ecoli_4.6Mbp_dna) in two records,
@@ -408,7 +415,7 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
 def recording_kernel_inputs(calls: list, want=lambda name, args: True):
     """Record the inputs of every kernel call made inside the block for
     which ``want(name, args)`` holds (the wrappers themselves still run)."""
-    real = {name: getattr(kernels, name) for name in KERNELS}
+    real = {name: getattr(kernels, name) for name in RECORDED}
 
     def recorder(name):
         fn, keep = real[name], REQUEST_ARGS[name]
@@ -423,12 +430,12 @@ def recording_kernel_inputs(calls: list, want=lambda name, args: True):
         rec.launches = 0
         return rec
 
-    for name in KERNELS:
+    for name in RECORDED:
         setattr(kernels, name, recorder(name))
     try:
         yield calls
     finally:
-        for name in KERNELS:
+        for name in RECORDED:
             setattr(kernels, name, real[name])
 
 
@@ -948,7 +955,7 @@ def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offse
 
 
 def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
-                       bwt_len, mark_offset: int) -> tuple[float, float, dict]:
+                       bwt_len) -> tuple[float, float, dict]:
     """(bytes, ops, walk lengths) of the walks these rows take: each distinct
     32 B sector their stepping visits read (the V plane sectors and the
     stepped symbol's milestone sector), each distinct sector of the sampled
@@ -956,7 +963,9 @@ def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity
     out); ops per stepping visit: backstep's LF (symbol V*3, rank V*16 + 8*3
     + 2) and the modulo's 4, per lane the final read and add, 4.  The walk
     lengths: steps of the rows other than row 0 (the lanes a query range
-    fills; the path's idle lanes walk row 0, which is sampled)."""
+    fills; the path's idle lanes walk row 0, which is sampled), and the
+    first row whose walk is the longest."""
+    mark_offset = nplanes * 8 + codes.shape[0]  # the LF does not read the mark words
     pos = rows.clamp(0, bwt_len - 1)
     steps = torch.zeros_like(pos)
     live = torch.nonzero(pos % sa_ratio != 0)[:, 0]
@@ -983,7 +992,17 @@ def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity
     for q in (0.5, 0.9, 0.99, 0.999):
         lengths[f"p{q * 100:g}"] = float(torch.quantile(live[: 1 << 24], q)) if live.numel() else 0.0
     lengths["max"] = int(live.max()) if live.numel() else 0
+    lengths["longest_row"] = int(rows[int(steps.argmax())].clamp(0, bwt_len - 1)) if n else 0
     return float(distinct * 32 + n * 16), float(ops), lengths
+
+
+def sampled_walk_ranges_bound(blocks, starts, counts, cap, *walk) -> tuple[float, float, dict]:
+    """sampled_walk_bound of the padded rows the ranges give (kernels.slot_rows),
+    its I/O counted as the range-fed entry moves it: starts and counts in (16
+    B per query), the int64[B, cap] positions out."""
+    rows = kernels.slot_rows(starts, counts, cap).reshape(-1)
+    nbytes, ops, lengths = sampled_walk_bound(blocks, rows, *walk)
+    return nbytes - rows.shape[0] * 16 + starts.shape[0] * 16 + rows.shape[0] * 8, ops, lengths
 
 
 def time_split(run: dict, device: torch.device) -> dict:
@@ -1059,16 +1078,14 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
         if err != 0:
             raise AssertionError(f"{kind} disagrees with its plain version on a main-path call "
                                  f"({args[1].shape[0]} requests): max abs err {err}")
-        c = checked.setdefault(kind, {"calls": 0, "max_abs_err": 0})
+        name = kind.removesuffix("_ranges")  # the range-fed entry counts under sampled_walk
+        c = checked.setdefault(name, {"calls": 0, "max_abs_err": 0})
         c["calls"] += 1
         c["max_abs_err"] = max(c["max_abs_err"], err)
-        if args[1].shape[0] < batch:
-            continue  # a re-dispatch call, not the verify path's: checked, not timed
-        # sampled_walk's wrapper syncs to check its walks' ends: the kernel
-        # is timed alone, the wrapper beside it.
-        launch = kernels.sampled_walk_launch if kind == "sampled_walk" else fn
-        ms = time_ms(lambda: launch(*args), device, 20, flush)
-        ms_wf = time_ms(lambda: launch(*args), device, 20, flush, write_flush=True)
+        if args[1].shape[0] < batch or kind == "sampled_walk":
+            continue  # a re-dispatch call or an over-cap expansion's walk: checked, not timed
+        ms = time_ms(lambda: fn(*args), device, 20, flush)
+        ms_wf = time_ms(lambda: fn(*args), device, 20, flush, write_flush=True)
         plain_ms = time_ms(lambda: plain(*args), device, 5, flush)
         lib_ms = lib_ms_wf = warm_ms = None
         extra = {}
@@ -1092,18 +1109,33 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
             walks += 1
             site = f"walk {walks} (mark {args[8]})"
             nbytes, ops = marked_walk_bound(*args)
-        elif kind == "sampled_walk":
+        elif kind == "sampled_walk_ranges":
+            # The new launch, beside the composition it replaced: the padded
+            # rows (slot_rows) walked by the flat entry, as one function to
+            # int64[B, cap]; and the chain floor, the longest walk at the
+            # per-step time of a one-row walk (its time less a 0-step walk's).
             walks += 1
-            site = f"sampled walk {walks} (SA ratio {args[7]})"
-            nbytes, ops, lengths = sampled_walk_bound(*args, dev.mark_offset)
-            extra = {"walk_steps": lengths, "checked_wrapper_ms": time_ms(lambda: fn(*args), device, 20, flush)}
+            site = f"sampled walk {walks} (ranges, SA ratio {args[9]}, cap {args[3]})"
+            nbytes, ops, lengths = sampled_walk_ranges_bound(*args)
+            blocks, starts, counts, cap, *walk = args
+
+            def glue_flat():
+                return kernels.sampled_walk_launch(blocks, kernels.slot_rows(starts, counts, cap).reshape(-1), *walk)
+
+            one_row = [torch.tensor([row], device=device) for row in (lengths["longest_row"], 0)]
+            longest_ms, zero_ms = (time_ms(lambda r=r: kernels.sampled_walk_launch(blocks, r, *walk), device, 20,
+                                           flush) for r in one_row)
+            extra = {"walk_steps": lengths, "glue_flat_ms": time_ms(glue_flat, device, 20, flush),
+                     "longest_walk_ms": longest_ms, "zero_step_walk_ms": zero_ms,
+                     "chain_floor_ms": max(longest_ms - zero_ms, 0.0),
+                     "per_step_ms": (longest_ms - zero_ms) / lengths["max"] if lengths["max"] else None}
         else:
             visits += 1
             site = f"one visit over walk {visits}'s rows"
             nbytes, ops = backstep_bound(*args)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
         row = {
-            "kernel": kind, "site": site, "requests": int(args[1].shape[0]), "ms": ms, "ms_write_flush": ms_wf,
+            "kernel": name, "site": site, "requests": int(args[1].shape[0]), "ms": ms, "ms_write_flush": ms_wf,
             "plain_ms": plain_ms, "library_ms": lib_ms, "library_ms_write_flush": lib_ms_wf, "bound_ms": bound,
             "bytes": nbytes, "ops": ops, "max_abs_err": err,
         }
@@ -1111,7 +1143,7 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
             row["ms_l2_not_flushed"] = warm_ms
         row.update(extra, clocks=clocks())
         rows.append(row)
-        agg = per_kernel.setdefault(kind, {"ms": 0.0, "ms_write_flush": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+        agg = per_kernel.setdefault(name, {"ms": 0.0, "ms_write_flush": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                            "library_ms_write_flush": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0})
         for key in ("ms", "ms_write_flush", "plain_ms", "bound_ms", "bytes", "ops"):
             agg[key] += row[key]
@@ -1374,7 +1406,8 @@ def facade_and_cli(run: dict, mrun: dict, npz: str, device: torch.device, tmp: s
     del fm
     # ops.rank.backstep on the rows of the mark-less path's recorded walk.
     mdev = mrun["engine"].device_index
-    walk_rows = next(a[1] for kind, a in mrun["calls"] if kind == "sampled_walk")
+    walk_rows = next(kernels.slot_rows(*a[1:4]).reshape(-1) for kind, a in mrun["calls"]
+                     if kind == "sampled_walk_ranges")
     mwalk = (mdev.prefix_sums, mdev.codes, mdev.c2i, mdev.num_planes, mdev.mark_offset, mdev.alphabet.ambiguity_idx)
     err = max_abs_err(rank.backstep(mdev, walk_rows), kernels.backstep_plain(mdev.blocks, walk_rows, *mwalk)[0])
     if err != 0:

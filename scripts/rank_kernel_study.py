@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The kernels of awry_tpu_torch timed on one NVIDIA GPU against other builds
 of their sources, in turns, at the shapes chip_smoke.py's paths give them:
-the rank kernels (occ_pair, occ), window_read and the marked LF walk.
+the rank kernels (occ_pair, occ), window_read, the marked LF walk and the
+row-sampled walk.
 
     python3 scripts/rank_kernel_study.py [--baseline DIR ...]
-        [--kernels occ_pair,occ,window_read,marked_walk]
-        [--paths chr1,chr20,grch38] [--pairs] [--out PATH]
+        [--kernels occ_pair,occ,window_read,marked_walk,sampled_walk]
+        [--paths chr1,chr20,grch38,markless,amino] [--pairs] [--out PATH]
 
 Builds (nvcc with the package's own flags, all started together):
 
@@ -28,7 +29,13 @@ path's first batch):
   (levels 11, 12 and 13) and their sum; window_read's seed read and slot
   fat rows (the slot regime's serving);
 - ``grch38`` (1 Gbp, mark 4): occ_pair's rank steps; window_read's seed
-  and text reads; the verify walk's rows (marked_walk).
+  and text reads; the verify walk's rows (marked_walk);
+- ``markless`` (chip_smoke's chr20 index without its marks, as load_awry
+  gives it: SA ratio 8): the classic batch's query ranges (starts, counts;
+  524,288 queries, cap 8), walked by sampled_walk;
+- ``amino`` (20 Mres of seeded random amino acids, k = 5, SA ratio 8, no
+  marks; bench.py's Swiss-Prot shape): the ranges of a 262,144-query batch
+  of drawn 12-mers, cap 8.
 
 Each site: every build in turns (b1 .. bk, then bk .. b1, twice), 20
 launches each timed by chip_smoke's ``time_ms`` (L2 flushed by a read
@@ -38,6 +45,18 @@ walk is timed whole (events around the call): a build with marked_walk in
 one launch, a build without it (the parent's) as mark_ratio backstep
 launches, the glue between them and the k=1 window_read of the marked SA
 (kernels.walk_by_visits); ``new, by visits`` runs the new build that way.
+The sampled walk is timed as one function from the ranges to the
+``int64[B, cap]`` positions: a build with sampled_walk_ranges launches it
+(schedule (c), persistent warps refilling lanes) and, as ``NAME, glue +
+flat``, walks the padded rows (kernels.slot_rows) with its flat entry; a
+build without it (the parent's) walks the padded rows with its flat
+kernel, one thread per row (schedule (a)); ``schedule_b`` is schedule
+(b), built onto a copy of the package's backstep.cu from ``SCHEDULE_B``
+below: a torch prefix sum of min(count, cap), then one thread per live
+slot.  Beside it,
+how the walks' tail weighs: the new build's range-fed walk over the first
+half of the batch, and over the batch with the queries whose walks take
+more than the p99 of steps emptied (``tail``).
 ``--pairs``: occ_pair also on the chr1 calls with every pair moved into one
 block, then into two blocks.  The full record goes to ``--out`` as JSON;
 the last line printed is the card's name and power limit.
@@ -48,6 +67,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import hashlib
 import json
@@ -64,8 +84,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from awry_tpu_torch import FmBuildArgs, build_from_records  # noqa: E402
-from awry_tpu_torch.ops import kernels, populate_kmer_table_device, to_device  # noqa: E402
+from awry_tpu_torch import Alphabet, FmBuildArgs, build_from_records  # noqa: E402
+from awry_tpu_torch.ops import FmQueryEngine, kernels, populate_kmer_table_device, to_device  # noqa: E402
 from awry_tpu_torch.ops.kmer import _level_chunk  # noqa: E402
 
 STUDY_DIR = os.path.join(kernels.BUILD_DIR, "study")
@@ -74,6 +94,7 @@ TURN_PAIRS = 2  # forward and backward turns per site, each REPS launches
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
 I32 = ctypes.c_int
+WALK = [I32, P, I64, I32, I32, P, P, P, I32, ctypes.c_uint32, P, I64, I64]  # the sampled walks' shared head
 # Each source's entry points and their argument types.
 ENTRIES = {
     "occ_pair.cu": {
@@ -84,9 +105,97 @@ ENTRIES = {
     "backstep.cu": {
         "backstep": [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, P, P, P],
         "marked_walk": [I32, P, I64, I32, I32, P, P, P, I32, I32, I32, P, I64, I64, P, I64, P, P],
+        "sampled_walk": [*WALK, P, I64, P, P, P],
+        "sampled_walk_ranges": [*WALK, P, P, I64, I32, P, P, P],
+        "sampled_walk_compact": [*WALK, P, P, P, I64, I32, P, P, P, P],
     },
 }
-KINDS = ("occ_pair", "occ", "window_read", "marked_walk")
+# The flat sampled walk of a backstep.cu without sampled_walk_ranges (the
+# parent's: one thread per row, sa_ratio an int, no cursor).
+PARENT_SAMPLED_WALK = [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, I64, P, I64, P, P]
+KINDS = ("occ_pair", "occ", "window_read", "marked_walk", "sampled_walk")
+# Schedule (b) of the range-fed walk, appended to a copy of the package's
+# backstep.cu (it uses that file's LF core): the caller's inclusive prefix
+# sum `incl` of min(count, cap) places each query's live slots;
+# compact_slots_kernel (one thread per query) writes their clamped rows and
+# output slots in that order and the query's idle slots, then
+# compact_walk_kernel walks one live slot per thread.  live_rows (uint32)
+# and live_slots (int64): scratch of nq * cap entries.
+SCHEDULE_B = r"""
+namespace {
+
+__global__ void compact_slots_kernel(const WalkTables t, const int64_t* __restrict__ starts,
+                                     const int64_t* __restrict__ counts, const int64_t* __restrict__ incl,
+                                     int64_t nq, int cap, uint32_t* __restrict__ live_rows,
+                                     int64_t* __restrict__ live_slots, int64_t* __restrict__ out) {
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const int64_t c = counts[q];
+  const int live = (int)(c < 0 ? 0 : (c > cap ? cap : c));
+  const int64_t before = incl[q] - live;
+  const int64_t idle = text_pos_of(__ldg(t.sa), 0, t.bwt_len);
+  for (int j = 0; j < cap; ++j) {
+    if (j < live) {
+      live_rows[before + j] = clamp_row(starts[q] + j, t.bwt_len);
+      live_slots[before + j] = q * cap + j;
+    } else {
+      out[q * cap + j] = idle;
+    }
+  }
+}
+
+template <int V>
+__global__ void compact_walk_kernel(const WalkTables t, const RowSampling smp, const int64_t* __restrict__ incl,
+                                    int64_t nq, const uint32_t* __restrict__ live_rows,
+                                    const int64_t* __restrict__ live_slots, int64_t* __restrict__ out) {
+  __shared__ CodeStep tab[1 << V];
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (nq == 0 || i >= incl[nq - 1]) return;
+  uint32_t pos = live_rows[i], steps = 0;
+  int64_t* o = out + live_slots[i];
+  while (!sampled_step<V>(t, smp, tab, pos, steps, o)) {
+  }
+}
+
+}  // namespace
+
+extern "C" int awry_sampled_walk_compact(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                         int nplanes, const void* prefix_sums, const void* codes,
+                                         const void* c2i, int ambiguity_idx, uint32_t sa_ratio,
+                                         const void* sampled_sa, int64_t sa_len, int64_t bwt_len,
+                                         const void* starts, const void* counts, const void* incl, int64_t nq,
+                                         int cap, void* live_rows, void* live_slots, void* out, void* stream) {
+  set_device(device);
+  const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
+                                   ambiguity_idx, sampled_sa, sa_len, bwt_len);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nq > 0) {
+    if (nplanes != 3 && nplanes != 5) return (int)cudaErrorInvalidValue;
+    compact_slots_kernel<<<blocks_for(nq), kThreads, 0, st>>>(t, (const int64_t*)starts, (const int64_t*)counts,
+                                                              (const int64_t*)incl, nq, cap,
+                                                              (uint32_t*)live_rows, (int64_t*)live_slots,
+                                                              (int64_t*)out);
+    const RowSampling smp = RowSampling::of(sa_ratio);
+    const unsigned grid = blocks_for(nq * cap);
+    if (nplanes == 3) {
+      compact_walk_kernel<3><<<grid, kThreads, 0, st>>>(t, smp, (const int64_t*)incl, nq,
+                                                         (const uint32_t*)live_rows, (const int64_t*)live_slots,
+                                                         (int64_t*)out);
+    } else {
+      compact_walk_kernel<5><<<grid, kThreads, 0, st>>>(t, smp, (const int64_t*)incl, nq,
+                                                         (const uint32_t*)live_rows, (const int64_t*)live_slots,
+                                                         (int64_t*)out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+"""
+# Swiss-Prot-shaped amino path (bench.py): 20 Mres, k = 5, 12-mer queries.
+AMINO_SYMBOLS = 20_000_000
+AMINO_KMER_LEN = 5
+AMINO_QLEN = 12
+AMINO_BATCH = 262_144
 
 
 def log(msg: str) -> None:
@@ -133,16 +242,34 @@ class _Build:
                     fn.restype, fn.argtypes = I32, argtypes
                     setattr(self, f"awry_{entry}", fn)
         self.walks_fused = "backstep.cu" not in present or hasattr(self._lib, f"{name}_marked_walk")
+        self.walks_ranges = "backstep.cu" not in present or hasattr(self._lib, f"{name}_sampled_walk_ranges")
+        self.walks_compact = hasattr(self._lib, f"{name}_sampled_walk_compact")
+        if not self.walks_ranges and hasattr(self._lib, f"{name}_sampled_walk"):
+            self.awry_sampled_walk.argtypes = PARENT_SAMPLED_WALK
         self._fallback = fallback
 
     def __getattr__(self, attr):
         return getattr(self._fallback, attr)
 
 
-def build_all(baselines: list[str]) -> tuple[dict, dict]:
-    """{name: lib} for every build ("new" first), and each one's ptxas
-    report."""
+def _schedule_b_dir() -> str:
+    """A directory holding the package's backstep.cu with SCHEDULE_B
+    appended, built as the baseline ``schedule_b``."""
+    directory = os.path.join(STUDY_DIR, "schedule_b")
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(kernels.CSRC_DIR, "backstep.cu")) as f:
+        text = f.read() + SCHEDULE_B
+    with open(os.path.join(directory, "backstep.cu"), "w") as f:
+        f.write(text)
+    return directory
+
+
+def build_all(baselines: list[str], schedule_b: bool) -> tuple[dict, dict]:
+    """{name: lib} for every build ("new" first, then the baselines and,
+    with ``schedule_b``, schedule (b)), and each one's ptxas report."""
     os.makedirs(STUDY_DIR, exist_ok=True)
+    if schedule_b:
+        baselines = [*baselines, _schedule_b_dir()]
     pending = [_start_baseline(d) for d in baselines]
     new = kernels._lib()  # the package's own build
     with open(kernels.library_path() + ".log") as f:
@@ -176,11 +303,11 @@ def _table_names(dev) -> dict:
             id(dev.vw_flat): "slot fat"}
 
 
-def _serving_sites(run: dict, kinds) -> list:
+def _serving_sites(run: dict, kinds, batch: int = cs.BATCH) -> list:
     """The full-batch calls of the path's first batch, labelled."""
     names, sites, steps = _table_names(run["engine"].device_index), [], 0
     for kind, a in run["calls"]:
-        if kind not in kinds or a[1].shape[0] < cs.BATCH:
+        if kind.removesuffix("_ranges") not in kinds or a[1].shape[0] < batch:
             continue
         if kind == "occ_pair":
             steps += 1
@@ -189,8 +316,22 @@ def _serving_sites(run: dict, kinds) -> list:
             sites.append((kind, f"{names.get(id(a[0]), 'table')} k={a[2]}", a))
         elif kind == "marked_walk":
             sites.append((kind, f"walk rows (mark {a[8]})", a))
+        elif kind == "sampled_walk_ranges":
+            sites.append(("sampled_walk", f"ranges (SA ratio {a[9]}, cap {a[3]})", a))
     run["engine"].release()
     return sites
+
+
+def _markless_sites(index, batch, device, kinds) -> list:
+    """The sampled walk's ranges call of ``batch`` served by the classic
+    path of ``index`` without its marks (what load_awry gives)."""
+    markless = dataclasses.replace(index, mark_bits=None, mark_milestones=None, text_sampled_sa=None,
+                                   text_packed=None)
+    engine = FmQueryEngine(markless, device=device)
+    calls: list = []
+    with cs.recording_kernel_inputs(calls, lambda name, a: name == "sampled_walk_ranges"):
+        next(engine.count_locate_stream([batch]))
+    return _serving_sites({"engine": engine, "calls": calls}, kinds, len(batch))
 
 
 def record_chr1(device, rng, kinds) -> list:
@@ -227,6 +368,26 @@ def record_grch38(device, rng, kinds) -> list:
     return _serving_sites(cs.grch38_path(device, rng), kinds)
 
 
+def record_markless(device, rng, kinds) -> list:
+    """chip_smoke's chr20 index and first batch (phase 7), its marks
+    stripped: phase 14's classic batch."""
+    run = cs.chr20_path(device, rng)
+    run["engine"].release()
+    return _markless_sites(run["index"], run["batches"][0], device, kinds)
+
+
+def record_amino(device, rng, kinds) -> list:
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+    text_np = letters[rng.integers(0, letters.shape[0], size=AMINO_SYMBOLS, dtype=np.uint8)]
+    index = build_from_records(
+        [("swissprot_shaped", text_np.tobytes())],
+        FmBuildArgs(alphabet=Alphabet.AMINO, lookup_table_kmer_len=AMINO_KMER_LEN, suffix_array_compression_ratio=8),
+    )
+    starts = rng.integers(0, AMINO_SYMBOLS - AMINO_QLEN, size=AMINO_BATCH)
+    batch = [text_np[s : s + AMINO_QLEN].tobytes() for s in starts.tolist()]
+    return _markless_sites(index, batch, device, kinds)
+
+
 # -- timing ----------------------------------------------------------------------------
 
 
@@ -239,8 +400,69 @@ def _walk(lib, args):
         return kernels.walk_by_visits(kernels.backstep, kernels.window_read, *args)
 
 
+def _parent_sampled_walk(lib, args):
+    """A parent build's walk of the padded rows, one thread per row (its
+    flat kernel, whose end check is left out as the engine's was)."""
+    blocks, starts, counts, cap, prefix_sums, codes, c2i, nplanes, amb, sa_ratio, sampled_sa, bwt_len = args
+    rows = kernels.slot_rows(starts, counts, cap).reshape(-1)
+    out = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
+    rc = lib.awry_sampled_walk(
+        blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes, prefix_sums.data_ptr(),
+        codes.data_ptr(), c2i.data_ptr(), amb, sa_ratio, sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len,
+        rows.data_ptr(), rows.shape[0], out.data_ptr(), kernels._stream(rows.device),
+    )
+    kernels._launch_check(rc, "parent sampled_walk")
+    return out.reshape(-1, cap)
+
+
+def _compact_sampled_walk(lib, args):
+    """Schedule (b): live slots compacted by a prefix sum, one thread each."""
+    blocks, starts, counts, cap, prefix_sums, codes, c2i, nplanes, amb, sa_ratio, sampled_sa, bwt_len = args
+    b = starts.shape[0]
+    incl = torch.cumsum(counts.clamp(0, cap), 0)
+    live_rows = torch.empty(b * cap, dtype=torch.int32, device=starts.device)
+    live_slots = torch.empty(b * cap, dtype=torch.int64, device=starts.device)
+    out = torch.empty((b, cap), dtype=torch.int64, device=starts.device)
+    rc = lib.awry_sampled_walk_compact(
+        *kernels._walk_entry_args(blocks, prefix_sums, codes, c2i, nplanes, amb, sa_ratio, sampled_sa, bwt_len),
+        starts.data_ptr(), counts.data_ptr(), incl.data_ptr(), b, cap, live_rows.data_ptr(), live_slots.data_ptr(),
+        out.data_ptr(), kernels._stream(starts.device),
+    )
+    kernels._launch_check(rc, "sampled_walk_compact")
+    return out
+
+
+def _sampled_contenders(libs: dict, args) -> dict:
+    """The range-fed walk's schedules on every build (module docstring)."""
+    blocks, starts, counts, cap, *rest = args
+    out = {}
+    for name, lib in libs.items():
+        if getattr(lib, "walks_compact", False):
+            out[name] = lambda lib=lib: _compact_sampled_walk(lib, args)
+            continue
+        if not getattr(lib, "walks_ranges", True):
+            out[name] = lambda lib=lib: _parent_sampled_walk(lib, args)
+            continue
+
+        def ranges(lib=lib):
+            with using(lib):
+                return kernels.sampled_walk_ranges(*args)
+
+        def glue_flat(lib=lib):
+            with using(lib):
+                rows = kernels.slot_rows(starts, counts, cap).reshape(-1)
+                return kernels.sampled_walk_launch(blocks, rows, *rest).reshape(-1, cap)
+
+        out[name] = ranges
+        out[f"{name}, glue + flat"] = glue_flat
+    return out
+
+
 def contenders(libs: dict, kind: str, args) -> dict:
     """{name: fn} timed in turns at a site."""
+    if kind == "sampled_walk":
+        return _sampled_contenders(libs, args)
+    libs = {name: lib for name, lib in libs.items() if not getattr(lib, "walks_compact", False)}
     if kind == "marked_walk":
         out = {name: (lambda lib=lib: _walk(lib, args)) for name, lib in libs.items()}
 
@@ -265,7 +487,7 @@ def contenders(libs: dict, kind: str, args) -> dict:
 def time_site(libs: dict, kind: str, args, device, flush) -> dict:
     """Each contender's largest error against the plain version, and its
     median ms over turns (forward, then backward, TURN_PAIRS times)."""
-    plain = getattr(kernels, f"{kind}_plain")(*args)
+    plain = (kernels.sampled_walk_ranges_plain if kind == "sampled_walk" else getattr(kernels, f"{kind}_plain"))(*args)
     fns = contenders(libs, kind, args)
     errs = {name: cs.result_err(fn(), plain) for name, fn in fns.items()}
     if errs["new"] != 0:
@@ -274,6 +496,38 @@ def time_site(libs: dict, kind: str, args, device, flush) -> dict:
     for name in (list(fns) + list(fns)[::-1]) * TURN_PAIRS:
         times[name].append(cs.time_ms(fns[name], device, REPS, flush))
     return {"max_abs_err": errs, "ms": {name: float(np.median(v)) for name, v in times.items()}, "turns_ms": times}
+
+
+def _query_steps(call):
+    """The longest walk (LF steps) of each query's live slots."""
+    blocks, starts, counts, cap, prefix_sums, codes, c2i, nplanes, amb, sa_ratio, sampled_sa, bwt_len = call
+    rows = kernels.slot_rows(starts, counts, cap).reshape(-1).clamp(0, bwt_len - 1)
+    lf = (prefix_sums, codes, c2i, nplanes, nplanes * 8 + codes.shape[0], amb)
+    steps = torch.zeros_like(rows)
+    live = torch.nonzero(rows % sa_ratio != 0)[:, 0]
+    while live.numel():
+        rows[live] = kernels.backstep_plain(blocks, rows[live], *lf)[0].clamp(0, bwt_len - 1)
+        steps[live] += 1
+        live = live[rows[live] % sa_ratio != 0]
+    return steps.reshape(-1, cap).max(dim=1).values
+
+
+def walk_tail(libs, call, device, flush) -> dict:
+    """The new build's range-fed walk (ms) over the whole batch, its first
+    half, and the batch with every query whose walks exceed the p99 of
+    steps emptied: what the walk-length tail costs."""
+    blocks, starts, counts, cap, *rest = call
+    steps = _query_steps(call)
+    p99 = float(torch.quantile(steps[counts > 0].double(), 0.99))
+    half = starts.shape[0] // 2
+    variants = {"whole batch": (starts, counts), "first half": (starts[:half].clone(), counts[:half].clone()),
+                f"walks of at most {p99:g} steps": (starts, torch.where(steps <= p99, counts, 0))}
+    out = {"max_steps": int(steps.max())}
+    with using(libs["new"]):
+        for label, (st, ct) in variants.items():
+            out[label] = cs.time_ms(lambda st=st, ct=ct: kernels.sampled_walk_ranges(blocks, st, ct, cap, *rest),
+                                    device, REPS, flush)
+    return out
 
 
 def same_block(args):
@@ -291,11 +545,11 @@ def two_blocks(args):
 
 
 BOUNDS = {"occ_pair": cs.occ_pair_bound, "occ": cs.occ_bound, "window_read": cs.window_read_bound,
-          "marked_walk": cs.marked_walk_bound}
+          "marked_walk": cs.marked_walk_bound, "sampled_walk": cs.sampled_walk_ranges_bound}
 
 
 def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dict:
-    nbytes, ops = BOUNDS[kind](*call)
+    nbytes, ops, *walks = BOUNDS[kind](*call)
     row = {"path": path, "kernel": kind, "site": label, "requests": int(call[1].shape[0]),
            "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.INT32_OPS_PER_S) * 1e3}
     if kind == "occ_pair":
@@ -303,7 +557,11 @@ def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dic
         nbits = blocks.shape[0] * 256
         same = (pos_a.clamp(0, nbits - 1) >> 8) == (pos_b.clamp(0, nbits - 1) >> 8)
         row["same_block_share"] = float(same.float().mean())
+    if walks:
+        row["walk_steps"] = walks[0]
     row.update(time_site(libs, kind, call, device, flush))
+    if kind == "sampled_walk":
+        row["tail"] = walk_tail(libs, call, device, flush)
     log(json.dumps(row))
     return row
 
@@ -312,7 +570,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", action="append", default=[], help="directory holding other kernel sources")
     parser.add_argument("--kernels", default="occ_pair,occ", help=f"comma-separated, of {','.join(KINDS)}")
-    parser.add_argument("--paths", default="chr1,chr20", help="comma-separated: chr1, chr20, grch38")
+    parser.add_argument("--paths", default="chr1,chr20", help="comma-separated: chr1, chr20, grch38, markless, amino")
     parser.add_argument("--pairs", action="store_true", help="occ_pair on chr1 pairs moved into one / two blocks")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="write the full record as JSON here")
@@ -327,7 +585,7 @@ def main() -> int:
     card = cs.card_line()
     log(f"device: {card}")
     t0 = time.perf_counter()
-    libs, ptxas = build_all(args.baseline)
+    libs, ptxas = build_all(args.baseline, "sampled_walk" in kinds)
     log(f"builds {list(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, lines in ptxas.items():
         for ln in lines:
@@ -337,7 +595,8 @@ def main() -> int:
     rows, sums = [], {}
     for path in args.paths.split(","):
         t0 = time.perf_counter()
-        sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38}[path](device, rng, kinds)
+        sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38, "markless": record_markless,
+                 "amino": record_amino}[path](device, rng, kinds)
         log(f"{path}: {len(sites)} sites recorded in {time.perf_counter() - t0:.1f} s")
         for kind, label, call in sites:
             rows.append(site_row(libs, path, kind, label, call, device, flush))

@@ -12,7 +12,14 @@ import pytest
 import torch
 
 from awry_tpu_torch import Alphabet, FmBuildArgs, FmIndex, Symbol, build_from_records, load_awry, save_awry
-from awry_tpu_torch.ops import FmQueryEngine, kernels, lf_walk, populate_kmer_table_device, to_device
+from awry_tpu_torch.ops import (
+    FmQueryEngine,
+    count_locate_capped_t,
+    kernels,
+    lf_walk,
+    populate_kmer_table_device,
+    to_device,
+)
 
 
 @pytest.fixture
@@ -336,3 +343,71 @@ def test_fm_index_on_card(card, tmp_path):
         r, r_cpu = fm.update_range_with_symbol(r, sym), ref.update_range_with_symbol(r_cpu, sym)
         assert r == r_cpu
     assert kernels.occ_pair.launches == p0 + 5
+
+
+def _walk_lengths(tdev, rows):
+    """LF steps each row's row-sampled walk takes (plain LF steps)."""
+    pos = rows.clone()
+    steps = torch.zeros_like(pos)
+    live = pos % tdev.sa_ratio != 0
+    lf = (tdev.prefix_sums, tdev.codes, tdev.c2i, tdev.num_planes, tdev.mark_offset, tdev.alphabet.ambiguity_idx)
+    while live.any():
+        pos[live] = kernels.backstep_plain(tdev.blocks, pos[live], *lf)[0]
+        steps[live] += 1
+        live &= pos % tdev.sa_ratio != 0
+    return steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+@pytest.mark.parametrize("sa_ratio", [8, 32])
+def test_sampled_walk_ranges_matches_plain(card, alphabet, sa_ratio, tmp_path):
+    """The range-fed walk equals its plain version: ranges tiling every row
+    of a built index (every slot live), every slot idle, ranges of every
+    count class (0, 1, cap, over cap) reaching past bwt_len, and a single
+    query whose one walk is the index's longest; each launch counts once
+    under sampled_walk."""
+    index, _, _, rng = _markless(alphabet, sa_ratio, tmp_path)
+    tdev = to_device(index, "cpu")
+    n, cap = tdev.bwt_len, 8
+    tables = [t.to(card) for t in (tdev.blocks, tdev.prefix_sums, tdev.codes, tdev.c2i)]
+    tail = (tdev.num_planes, alphabet.ambiguity_idx, sa_ratio, tdev.sampled_sa, n)
+    longest = int(_walk_lengths(tdev, torch.arange(n)).argmax())
+    tiles = torch.arange(0, n, cap)
+    batches = {
+        "every slot live": (tiles, torch.full_like(tiles, cap)),
+        "every slot idle": (tiles, torch.zeros_like(tiles)),
+        "count classes": (torch.from_numpy(rng.integers(n - 3000, n + 5, 4099)),
+                          torch.from_numpy(np.resize(np.array([0, 1, cap, cap + 7, 3]), 4099))),
+        "the longest walk": (torch.tensor([longest]), torch.tensor([1])),
+    }
+    for name, (starts, counts) in batches.items():
+        want = kernels.sampled_walk_ranges_plain(tdev.blocks, starts, counts, cap, tdev.prefix_sums, tdev.codes,
+                                                 tdev.c2i, *tail)
+        n0 = kernels.sampled_walk.launches
+        got = kernels.sampled_walk_ranges(tables[0], starts.to(card), counts.to(card), cap, *tables[1:],
+                                          tail[0], tail[1], tail[2], tail[3].to(card), n)
+        assert kernels.sampled_walk.launches == n0 + 1
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+def test_markless_capped_locate_does_not_sync(card, tmp_path):
+    """count_locate_capped_t on an index without marks, with the crumb
+    wire's flags, runs with no host sync (set_sync_debug_mode("error")
+    raises on one, naming the call), and gives the CPU's answers."""
+    index, _, seq, rng = _markless(Alphabet.NUCLEOTIDE, 8, tmp_path)
+    on_card, on_cpu = FmQueryEngine(index, device=card), FmQueryEngine(index, device="cpu")
+    queries = [seq[s : s + 30] for s in rng.integers(0, len(seq) - 30, size=4000)] + [seq[10:14] * 3]
+    wire, qlens = on_card.encode_queries(queries)
+    qt, ql, flags = on_card._upload(wire, qlens)
+    assert flags["no_sentinel"] and flags["seeded_floor"]
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = count_locate_capped_t(on_card.device_index, qt, ql, 8, **flags)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = count_locate_capped_t(on_cpu.device_index, *on_cpu._upload(wire, qlens)[:2], 8, **flags)
+    for x, y in zip(out, want):
+        assert torch.equal(x.cpu(), y)
