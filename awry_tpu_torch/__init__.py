@@ -10,14 +10,36 @@ through six hand-written CUDA kernels (``ops/kernels.py``, ``csrc/``):
 engine, and ``python -m awry_tpu_torch`` its command line.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
+``awry_tpu_torch.parallel.PartitionedFmIndex`` federates indexes of record
+groups (the partitioned pan-genome configuration).
+
+The names that need torch (the facade and the ``.awry`` format, which
+re-derives its k-mer table on a device) load on first use, so the host
+layer (alphabet, index, builder, ``.npz`` artifact) imports without torch:
+the federation's spawned build workers use only it.
 """
+
+import importlib
 
 from .alphabet import Alphabet, Symbol
 from .build.builder import build_from_records, build_index
-from .fm_index import FmIndex, LocalizedSequencePosition, SearchRange
 from .index import FmBuildArgs, FmIndexData
 from .io.artifact import load_artifact, save_artifact
-from .io.awry_format import load_awry, save_awry
+
+_LAZY = {
+    "FmIndex": ".fm_index",
+    "LocalizedSequencePosition": ".fm_index",
+    "SearchRange": ".fm_index",
+    "load_awry": ".io.awry_format",
+    "save_awry": ".io.awry_format",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Alphabet",

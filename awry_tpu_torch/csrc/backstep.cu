@@ -110,15 +110,39 @@
 // launch and the tail of long walks: emptying the 1 % of queries whose walks
 // exceed 34 steps saves 0.025-0.034 ms).  marked_walk on this LF core: 0.1317
 // ms against the parent's 0.1328 at the GRCh38-shaped site.
+//
+// The wide variants (backstep_wide, marked_walk_wide, sampled_walk_wide and
+// its range-fed entry: texts of 2^32 symbols and more, ops/wide.py) are the
+// same kernels instantiated with kWide.  A wide index keeps this row layout
+// with each row's milestones and mark milestone counted from the first block
+// of its group of 2^group_shift blocks; the LF core adds the group's base for
+// the stepped symbol (ms_base, int64 [groups, card], L2-resident: one more
+// dependent read per step, issued once the planes name the symbol), and the
+// mark rank adds mark_base[group] (int64).  Rows, steps and SA values are 64
+// bits: the mark rank is whole (not backstep's 31 packed bits), SA values
+// are int64, and the row sampling of a ratio that is no power of two takes a
+// 64-bit remainder and quotient (RowSampling64: the multiplier above is
+// exact only for 32-bit rows).  Bound: as the narrow twins, with 8-byte SA
+// values and wider outputs.
+//
+// ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 46 / 60,
+// backstep_wide 64 / 72; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
+// range-fed sampled walk 65 / 78, wide 64 / 80.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// A read-only int64 load (the wide variants' group bases and SA values).
+__device__ __forceinline__ int64_t ldg64(const int64_t* p) {
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(p));
+}
 
 // w[i] for a runtime i in [0, N), as a select chain (no local-memory array).
 template <int N>
@@ -133,6 +157,7 @@ __device__ __forceinline__ uint32_t pick(const uint32_t (&w)[N], uint32_t i) {
 // inside the block's 256-bit fields.  pos is clamped into the table.
 struct RowAt {
   const uint32_t* row;
+  uint32_t blk;
   uint32_t word;
   uint32_t bit;
 };
@@ -140,7 +165,7 @@ struct RowAt {
 __device__ __forceinline__ RowAt row_at(const uint32_t* blocks, int64_t nbits, int row_words, int64_t pos) {
   pos = pos < 0 ? 0 : (pos >= nbits ? nbits - 1 : pos);
   const uint32_t local = (uint32_t)pos & 255u;
-  return {blocks + (pos >> 8) * (int64_t)row_words, local >> 5, local & 31u};
+  return {blocks + (pos >> 8) * (int64_t)row_words, (uint32_t)(pos >> 8), local >> 5, local & 31u};
 }
 
 // What an LF step takes from its row's occurrence code: the safe symbol
@@ -152,6 +177,37 @@ struct alignas(16) CodeStep {
   uint16_t safe;
   uint16_t sentinel;
 };
+
+// What a walk reads besides its rows: the fused rows, the LF step's tables
+// and the SA values it ends on (the marked SA values for marked_walk, the
+// row-sampled SA for the sampled walks).  The wide variants (kWide: texts
+// of 2^32 symbols and more) read the rows' milestones and mark milestones
+// relative to their group of 2^group_shift blocks, add the group's absolute
+// counts from ms_base (int64 [groups, card]) and mark_base (int64
+// [groups]), and read int64 SA values from sa64.
+struct WalkTables {
+  const uint32_t* blocks;
+  int64_t nbits;
+  int row_words;
+  const int64_t* prefix_sums;
+  const int32_t* codes;
+  const int32_t* c2i;
+  int ambiguity_idx;
+  const uint32_t* sa;
+  int64_t sa_len;
+  int64_t bwt_len;
+  const int64_t* sa64;
+  const int64_t* ms_base;
+  const int64_t* mark_base;
+  int group_shift;
+  int card;
+};
+
+// A BWT row, a step count and a mark rank: uint32 narrow, 64-bit wide.
+template <bool kWide>
+using WalkRow = std::conditional_t<kWide, uint64_t, uint32_t>;
+template <bool kWide>
+using MarkRank = std::conditional_t<kWide, int64_t, uint32_t>;
 
 // The 2^V-entry code -> step table, in shared memory, filled by the block.
 template <int V>
@@ -215,8 +271,9 @@ __device__ __forceinline__ void load_row(const RowAt& r, RowWords<V>& x) {
 
 // LF(row) from its loaded words: C[safe] + Occ(row, safe) - 1, or 0 when
 // the row's symbol is the sentinel.
-template <int V>
-__device__ __forceinline__ int64_t lf_of(const RowWords<V>& x, const RowAt& r, const CodeStep* tab) {
+template <int V, bool kWide = false>
+__device__ __forceinline__ int64_t lf_of(const RowWords<V>& x, const RowAt& r, const CodeStep* tab,
+                                         const WalkTables& t) {
   uint32_t code = 0;
 #pragma unroll
   for (int v = 0; v < V; ++v) code |= ((pick(x.plane[v], r.word) >> r.bit) & 1u) << v;
@@ -244,12 +301,16 @@ __device__ __forceinline__ int64_t lf_of(const RowWords<V>& x, const RowAt& r, c
   } else {
     mile = __ldg(r.row + V * 8 + c.safe);
   }
-  return c.sentinel ? 0 : c.base + (int64_t)mile + count;
+  int64_t base = c.base;
+  if constexpr (kWide) base += ldg64(t.ms_base + (int64_t)(r.blk >> t.group_shift) * t.card + c.safe);
+  return c.sentinel ? 0 : base + (int64_t)mile + count;
 }
 
 // The row's mark bit, and into mark_rank the marked rows strictly before
 // it: the mark milestone plus the mark words' bits [0, row) of the block.
-__device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, uint32_t& mark_rank) {
+template <bool kWide = false>
+__device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, MarkRank<kWide>& mark_rank,
+                                            const WalkTables& t) {
   uint32_t marks[8];
   const uint2* mp = reinterpret_cast<const uint2*>(r.row + mark_offset);
 #pragma unroll
@@ -260,6 +321,7 @@ __device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, uin
   }
   const uint32_t before = (1u << r.bit) - 1u;  // exclusive: bits [0, bit)
   mark_rank = __ldg(r.row + mark_offset + 8);
+  if constexpr (kWide) mark_rank += ldg64(t.mark_base + (r.blk >> t.group_shift));
 #pragma unroll
   for (uint32_t w = 0; w < 8; ++w) {
     const uint32_t m = w < r.word ? kFull : (w == r.word ? before : 0u);
@@ -268,25 +330,11 @@ __device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, uin
   return (pick(marks, r.word) >> r.bit) & 1u;
 }
 
-// What a walk reads besides its rows: the fused rows, the LF step's tables
-// and the SA values it ends on (the marked SA values for marked_walk, the
-// row-sampled SA for the sampled walks).
-struct WalkTables {
-  const uint32_t* blocks;
-  int64_t nbits;
-  int row_words;
-  const int64_t* prefix_sums;
-  const int32_t* codes;
-  const int32_t* c2i;
-  int ambiguity_idx;
-  const uint32_t* sa;
-  int64_t sa_len;
-  int64_t bwt_len;
-};
-
-template <int V>
+// mark: (mark_rank << 1) | mark_bit as uint32 (narrow: 31 bits of the
+// rank) or int64 (wide).
+template <int V, bool kWide>
 __global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64_t* __restrict__ rows, int64_t n,
-                                int64_t* __restrict__ stepped, uint32_t* __restrict__ mark) {
+                                int64_t* __restrict__ stepped, MarkRank<kWide>* __restrict__ mark) {
   __shared__ CodeStep tab[1 << V];
   load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -294,19 +342,19 @@ __global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64
   const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
   RowWords<V> x;
   load_row(r, x);
-  uint32_t mark_rank;
-  const uint32_t mark_bit = mark_of(r, mark_offset, mark_rank);
-  stepped[i] = lf_of(x, r, tab);
+  MarkRank<kWide> mark_rank;
+  const uint32_t mark_bit = mark_of<kWide>(r, mark_offset, mark_rank, t);
+  stepped[i] = lf_of<V, kWide>(x, r, tab, t);
   mark[i] = (mark_rank << 1) | mark_bit;
 }
 
 // text_pos[i] of row rows[i] by the marked walk: a row is final when its
 // mark bit is set (its mark word is read first, so a marked row skips its
 // planes) or on the walk's last visit (steps == mark_ratio - 1); the SA
-// index is the final row's mark rank, 31 bits of it as backstep packs it,
-// clamped into the marked SA; text_pos = sa + steps, less bwt_len when
-// that reaches it.
-template <int V>
+// index is the final row's mark rank (narrow: 31 bits of it, as backstep
+// packs it), clamped into the marked SA; text_pos = sa + steps, less
+// bwt_len when that reaches it.
+template <int V, bool kWide>
 __global__ void marked_walk_kernel(const WalkTables t, int mark_offset, int mark_ratio,
                                    const int64_t* __restrict__ rows, int64_t n, int64_t* __restrict__ text_pos) {
   __shared__ CodeStep tab[1 << V];
@@ -318,16 +366,22 @@ __global__ void marked_walk_kernel(const WalkTables t, int mark_offset, int mark
     const RowAt r = row_at(t.blocks, t.nbits, t.row_words, pos);
     const uint32_t word = __ldg(r.row + mark_offset + r.word);
     if (((word >> r.bit) & 1u) || steps + 1 >= mark_ratio) {
-      uint32_t mark_rank;
-      mark_of(r, mark_offset, mark_rank);
-      const int64_t idx = (int64_t)(mark_rank & 0x7FFFFFFFu);
-      const int64_t s = (int64_t)__ldg(t.sa + (idx >= t.sa_len ? t.sa_len - 1 : idx)) + steps;
+      MarkRank<kWide> mark_rank;
+      mark_of<kWide>(r, mark_offset, mark_rank, t);
+      int64_t s;
+      if constexpr (kWide) {
+        const int64_t idx = mark_rank < 0 ? 0 : (mark_rank >= t.sa_len ? t.sa_len - 1 : mark_rank);
+        s = ldg64(t.sa64 + idx) + steps;
+      } else {
+        const int64_t idx = (int64_t)(mark_rank & 0x7FFFFFFFu);
+        s = (int64_t)__ldg(t.sa + (idx >= t.sa_len ? t.sa_len - 1 : idx)) + steps;
+      }
       text_pos[i] = s >= t.bwt_len ? s - t.bwt_len : s;
       return;
     }
     RowWords<V> x;
     load_row(r, x);
-    pos = lf_of(x, r, tab);
+    pos = lf_of<V, kWide>(x, r, tab, t);
   }
 }
 
@@ -356,15 +410,47 @@ struct RowSampling {
   }
 };
 
+// The same sampling of 64-bit rows (the wide walks): the multiplier above
+// is exact only for 32-bit rows, so a ratio that is no power of two takes
+// a 64-bit remainder and quotient; a power of two a mask and a shift.
+struct RowSampling64 {
+  uint64_t ratio;  // 0 for a power of two
+  uint64_t mask;
+  uint32_t shift;
+
+  static RowSampling64 of(uint64_t ratio) {
+    if (ratio & (ratio - 1)) return {ratio, 0, 0};
+    uint32_t shift = 0;
+    while ((1ull << shift) < ratio) ++shift;
+    return {0, ratio - 1, shift};
+  }
+  __device__ __forceinline__ bool sampled(uint64_t p) const { return ratio ? p % ratio == 0 : (p & mask) == 0; }
+  __device__ __forceinline__ uint64_t index(uint64_t p) const { return ratio ? p / ratio : p >> shift; }
+};
+
+template <bool kWide>
+using Sampling = std::conditional_t<kWide, RowSampling64, RowSampling>;
+
 // A walk's text position: its final row's SA value plus its steps, less
 // bwt_len when that reaches it.
-__device__ __forceinline__ int64_t text_pos_of(uint32_t sa, uint32_t steps, int64_t bwt_len) {
-  const int64_t s = (int64_t)sa + steps;
+__device__ __forceinline__ int64_t text_pos_of(int64_t sa, int64_t steps, int64_t bwt_len) {
+  const int64_t s = sa + steps;
   return s >= bwt_len ? s - bwt_len : s;
 }
 
-__device__ __forceinline__ uint32_t clamp_row(int64_t row, int64_t bwt_len) {
-  return (uint32_t)(row < 0 ? 0 : (row >= bwt_len ? bwt_len - 1 : row));
+template <class Row = uint32_t>
+__device__ __forceinline__ Row clamp_row(int64_t row, int64_t bwt_len) {
+  return (Row)(row < 0 ? 0 : (row >= bwt_len ? bwt_len - 1 : row));
+}
+
+// The SA value at index i of the walk's sampled SA (uint32 or int64).
+template <bool kWide>
+__device__ __forceinline__ int64_t sa_at(const WalkTables& t, int64_t i) {
+  if constexpr (kWide) {
+    return ldg64(t.sa64 + i);
+  } else {
+    return __ldg(t.sa + i);
+  }
 }
 
 // One lane's step of a sampled walk at row pos: one round trip, its SA
@@ -372,21 +458,21 @@ __device__ __forceinline__ uint32_t clamp_row(int64_t row, int64_t bwt_len) {
 // else its row (pos and steps advance).  A walk still going after bwt_len
 // steps ends with -1 (no valid index allows it: row 0 is sampled and LF is
 // one cycle over all rows).  Returns whether the walk ended.
-template <int V>
-__device__ __forceinline__ bool sampled_step(const WalkTables& t, const RowSampling& smp, const CodeStep* tab,
-                                             uint32_t& pos, uint32_t& steps, int64_t* out) {
+template <int V, bool kWide = false>
+__device__ __forceinline__ bool sampled_step(const WalkTables& t, const Sampling<kWide>& smp, const CodeStep* tab,
+                                             WalkRow<kWide>& pos, WalkRow<kWide>& steps, int64_t* out) {
   const bool ends = smp.sampled(pos);
   const bool stepping = !ends && (int64_t)steps < t.bwt_len;
-  uint32_t sa = 0;
+  int64_t sa = 0;
   RowAt r{};
   RowWords<V> x;
-  if (ends) sa = __ldg(t.sa + smp.index(pos));
+  if (ends) sa = sa_at<kWide>(t, (int64_t)smp.index(pos));
   if (stepping) {
     r = row_at(t.blocks, t.nbits, t.row_words, pos);
     load_row<V, true>(r, x);
   }
   if (stepping) {
-    pos = clamp_row(lf_of(x, r, tab), t.bwt_len);
+    pos = clamp_row<WalkRow<kWide>>(lf_of<V, kWide>(x, r, tab, t), t.bwt_len);
     ++steps;
     return false;
   }
@@ -418,9 +504,9 @@ __device__ __forceinline__ TileQuery tile_query(int64_t tile, const int64_t* __r
 // The sampled walks of nq queries' live slots into out[nq, cap] (flat rows:
 // kRows, starts = rows, cap = 1), by persistent warps that refill lanes as
 // walks end (the head of this file).  cursor: one 64-bit counter, zero.
-template <int V, bool kRows>
+template <int V, bool kRows, bool kWide>
 __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
-    const WalkTables t, const RowSampling smp, const int64_t* __restrict__ starts,
+    const WalkTables t, const Sampling<kWide> smp, const int64_t* __restrict__ starts,
     const int64_t* __restrict__ counts, int64_t nq, int cap, unsigned long long* __restrict__ cursor,
     int64_t* __restrict__ out) {
   __shared__ CodeStep tab[1 << V];
@@ -429,7 +515,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
   const unsigned below = (1u << lane) - 1u;
   const int64_t ntiles = (nq + 31) >> 5;
   // An idle slot's value: the walk of row 0, which is sampled.
-  const int64_t idle = kRows ? 0 : text_pos_of(__ldg(t.sa), 0, t.bwt_len);
+  const int64_t idle = kRows ? 0 : text_pos_of(sa_at<kWide>(t, 0), 0, t.bwt_len);
 
   // The next tile (claimed, its queries loading) and the claim of the one
   // after it run a tile ahead of the tile being handed out.
@@ -446,7 +532,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
   uint32_t handed = 0;     // of them, handed to lanes
   bool more = true;        // tiles left to claim
   bool walking = false;
-  uint32_t pos = 0, steps = 0;
+  WalkRow<kWide> pos = 0, steps = 0;
   int64_t slot = 0;
   for (;;) {
     unsigned free_lanes = __ballot_sync(kFull, !walking);
@@ -491,7 +577,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
       const int64_t start = __shfl_sync(kFull, cur.start, q);
       if (!walking && want < tile_live) {
         const uint32_t j = want - before;
-        pos = clamp_row(start + j, t.bwt_len);
+        pos = clamp_row<WalkRow<kWide>>(start + j, t.bwt_len);
         steps = 0;
         slot = (tile * 32 + q) * cap + j;
         walking = true;
@@ -500,7 +586,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
       free_lanes = __ballot_sync(kFull, !walking);
     }
     if (!__any_sync(kFull, walking)) break;
-    if (walking && sampled_step<V>(t, smp, tab, pos, steps, out + slot)) walking = false;
+    if (walking && sampled_step<V, kWide>(t, smp, tab, pos, steps, out + slot)) walking = false;
   }
 }
 
@@ -533,19 +619,87 @@ unsigned persistent_grid(Kernel kernel, int device, std::atomic<int> (&fit)[kMax
   return (unsigned)(need < resident ? need : resident);
 }
 
-template <int V, bool kRows>
-void launch_sampled(int device, const WalkTables& t, uint32_t sa_ratio, const void* starts, const void* counts,
+template <int V, bool kRows, bool kWide>
+void launch_sampled(int device, const WalkTables& t, uint64_t sa_ratio, const void* starts, const void* counts,
                     int64_t nq, int cap, void* cursor, void* out, cudaStream_t st) {
   static std::atomic<int> fit[kMaxDevices];
-  auto kernel = sampled_walk_kernel<V, kRows>;
+  auto kernel = sampled_walk_kernel<V, kRows, kWide>;
   kernel<<<persistent_grid(kernel, device, fit, nq), kThreads, 0, st>>>(
-      t, RowSampling::of(sa_ratio), (const int64_t*)starts, (const int64_t*)counts, nq, cap,
+      t, Sampling<kWide>::of(sa_ratio), (const int64_t*)starts, (const int64_t*)counts, nq, cap,
       (unsigned long long*)cursor, (int64_t*)out);
 }
 
 void set_device(int device) {
   int cur = -1;
   if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+}
+
+// The wide tables of a WalkTables: the group bases and the int64 SA values.
+WalkTables widen(WalkTables t, int card, const void* ms_base, const void* mark_base, int group_shift,
+                 const void* sa64) {
+  t.card = card;
+  t.ms_base = (const int64_t*)ms_base;
+  t.mark_base = (const int64_t*)mark_base;
+  t.group_shift = group_shift;
+  t.sa64 = (const int64_t*)sa64;
+  return t;
+}
+
+template <bool kWide>
+int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offset, const void* rows, int64_t n,
+                    void* stepped, void* mark, void* stream) {
+  set_device(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0) {
+    if (nplanes == 3) {
+      backstep_kernel<3, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
+    } else if (nplanes == 5) {
+      backstep_kernel<5, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kWide>
+int launch_marked_walk(int device, const WalkTables& t, int nplanes, int mark_offset, int mark_ratio,
+                       const void* rows, int64_t n, void* text_pos, void* stream) {
+  set_device(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0) {
+    if (nplanes == 3) {
+      marked_walk_kernel<3, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, mark_ratio,
+                                                                       (const int64_t*)rows, n, (int64_t*)text_pos);
+    } else if (nplanes == 5) {
+      marked_walk_kernel<5, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, mark_ratio,
+                                                                       (const int64_t*)rows, n, (int64_t*)text_pos);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The flat-row walk (kRows; starts = rows, counts unused) or the range-fed
+// walk.
+template <bool kRows, bool kWide>
+int launch_sampled_walk(int device, const WalkTables& t, int nplanes, uint64_t sa_ratio, const void* starts,
+                        const void* counts, int64_t nq, int cap, void* cursor, void* out, void* stream) {
+  set_device(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nq > 0) {
+    if (nplanes == 3) {
+      launch_sampled<3, kRows, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
+    } else if (nplanes == 5) {
+      launch_sampled<5, kRows, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -557,22 +711,9 @@ extern "C" int awry_backstep(int device, const void* blocks, int64_t num_blocks,
                              const void* c2i, int mark_offset, int ambiguity_idx,
                              const void* rows, int64_t n, void* stepped, void* mark,
                              void* stream) {
-  set_device(device);
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                    nullptr, 0, 0);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0) {
-    if (nplanes == 3) {
-      backstep_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
-                                                             (int64_t*)stepped, (uint32_t*)mark);
-    } else if (nplanes == 5) {
-      backstep_kernel<5><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
-                                                             (int64_t*)stepped, (uint32_t*)mark);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_backstep<false>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream);
 }
 
 extern "C" int awry_marked_walk(int device, const void* blocks, int64_t num_blocks, int row_words,
@@ -581,22 +722,9 @@ extern "C" int awry_marked_walk(int device, const void* blocks, int64_t num_bloc
                                 int mark_ratio, const void* sampled_sa, int64_t sa_len,
                                 int64_t bwt_len, const void* rows, int64_t n, void* text_pos,
                                 void* stream) {
-  set_device(device);
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0) {
-    if (nplanes == 3) {
-      marked_walk_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, mark_ratio, (const int64_t*)rows,
-                                                                n, (int64_t*)text_pos);
-    } else if (nplanes == 5) {
-      marked_walk_kernel<5><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, mark_ratio, (const int64_t*)rows,
-                                                                n, (int64_t*)text_pos);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_marked_walk<false>(device, t, nplanes, mark_offset, mark_ratio, rows, n, text_pos, stream);
 }
 
 // The flat-row walk (rows: int64[n]) and the range-fed walk (starts,
@@ -606,20 +734,10 @@ extern "C" int awry_sampled_walk(int device, const void* blocks, int64_t num_blo
                                  const void* c2i, int ambiguity_idx, uint32_t sa_ratio,
                                  const void* sampled_sa, int64_t sa_len, int64_t bwt_len,
                                  const void* rows, int64_t n, void* cursor, void* text_pos, void* stream) {
-  set_device(device);
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0) {
-    if (nplanes == 3) {
-      launch_sampled<3, true>(device, t, sa_ratio, rows, nullptr, n, 1, cursor, text_pos, st);
-    } else if (nplanes == 5) {
-      launch_sampled<5, true>(device, t, sa_ratio, rows, nullptr, n, 1, cursor, text_pos, st);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_sampled_walk<true, false>(device, t, nplanes, sa_ratio, rows, nullptr, n, 1, cursor, text_pos,
+                                          stream);
 }
 
 extern "C" int awry_sampled_walk_ranges(int device, const void* blocks, int64_t num_blocks, int row_words,
@@ -628,18 +746,62 @@ extern "C" int awry_sampled_walk_ranges(int device, const void* blocks, int64_t 
                                         const void* sampled_sa, int64_t sa_len, int64_t bwt_len,
                                         const void* starts, const void* counts, int64_t nq, int cap,
                                         void* cursor, void* out, void* stream) {
-  set_device(device);
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nq > 0) {
-    if (nplanes == 3) {
-      launch_sampled<3, false>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
-    } else if (nplanes == 5) {
-      launch_sampled<5, false>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_sampled_walk<false, false>(device, t, nplanes, sa_ratio, starts, counts, nq, cap, cursor, out,
+                                           stream);
+}
+
+// The wide variants: the same arguments as their narrow twins, with card,
+// ms_base (int64 [groups, card]), mark_base (int64 [groups]; the walks
+// without marks pass none) and group_shift after c2i; SA values int64;
+// backstep's mark output int64; sa_ratio 64-bit.
+extern "C" int awry_backstep_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                  int nplanes, const void* prefix_sums, const void* codes,
+                                  const void* c2i, int card, const void* ms_base, const void* mark_base,
+                                  int group_shift, int mark_offset, int ambiguity_idx, const void* rows,
+                                  int64_t n, void* stepped, void* mark, void* stream) {
+  const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                         nullptr, 0, 0),
+                             card, ms_base, mark_base, group_shift, nullptr);
+  return launch_backstep<true>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream);
+}
+
+extern "C" int awry_marked_walk_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                     int nplanes, const void* prefix_sums, const void* codes,
+                                     const void* c2i, int card, const void* ms_base, const void* mark_base,
+                                     int group_shift, int mark_offset, int ambiguity_idx, int mark_ratio,
+                                     const void* sampled_sa, int64_t sa_len, int64_t bwt_len, const void* rows,
+                                     int64_t n, void* text_pos, void* stream) {
+  const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                         nullptr, sa_len, bwt_len),
+                             card, ms_base, mark_base, group_shift, sampled_sa);
+  return launch_marked_walk<true>(device, t, nplanes, mark_offset, mark_ratio, rows, n, text_pos, stream);
+}
+
+extern "C" int awry_sampled_walk_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                      int nplanes, const void* prefix_sums, const void* codes,
+                                      const void* c2i, int card, const void* ms_base, int group_shift,
+                                      int ambiguity_idx, uint64_t sa_ratio, const void* sampled_sa,
+                                      int64_t sa_len, int64_t bwt_len, const void* rows, int64_t n,
+                                      void* cursor, void* text_pos, void* stream) {
+  const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                         nullptr, sa_len, bwt_len),
+                             card, ms_base, nullptr, group_shift, sampled_sa);
+  return launch_sampled_walk<true, true>(device, t, nplanes, sa_ratio, rows, nullptr, n, 1, cursor, text_pos,
+                                         stream);
+}
+
+extern "C" int awry_sampled_walk_ranges_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                             int nplanes, const void* prefix_sums, const void* codes,
+                                             const void* c2i, int card, const void* ms_base, int group_shift,
+                                             int ambiguity_idx, uint64_t sa_ratio, const void* sampled_sa,
+                                             int64_t sa_len, int64_t bwt_len, const void* starts,
+                                             const void* counts, int64_t nq, int cap, void* cursor, void* out,
+                                             void* stream) {
+  const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                         nullptr, sa_len, bwt_len),
+                             card, ms_base, nullptr, group_shift, sampled_sa);
+  return launch_sampled_walk<false, true>(device, t, nplanes, sa_ratio, starts, counts, nq, cap, cursor, out,
+                                          stream);
 }

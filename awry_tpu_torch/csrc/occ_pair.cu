@@ -1,6 +1,6 @@
 // occ_pair: (Occ(pos_a[i], sym[i]), Occ(pos_b[i], sym[i])) over fused block
 // rows, where Occ(p, c) = count of symbol c in BWT[0..=p]; occ: Occ(pos[i],
-// sym[i]) alone.
+// sym[i]) alone; occ_pair_wide: occ_pair over a 64-bit index (below).
 //
 // occ_pair replaces awry_tpu/ops/sweep.py:_occ_pair_pay_kernel_anchored (the
 // post-seed LF steps of seeded_pair_chain) and its twin
@@ -63,12 +63,26 @@
 // Positions are clamped into the table (pos_a = start-1 is -1 only on lanes
 // the caller masks) and symbols into the alphabet.
 //
+// The wide variant (occ_pair_wide, texts of 2^32 symbols and more, ops/wide.py)
+// is the same kernel instantiated with kWide: a wide index keeps this row
+// layout, with each row's milestones counted from the first block of its
+// group of 2^group_shift blocks (2^24 symbols at the default 16, so they fit
+// 32 bits), and ms_base (int64 [groups, card], a few KB that stay in L2)
+// holds each group's absolute counts.  Lane 0 of the pair reads both
+// endpoints' bases while the pair reads the rows, so a rank is still one
+// row read; the ranks are written as int64.  It replaces the same Pallas
+// kernels at 64 bits (the reference's 64-bit engine ranks by plain gathers,
+// awry_tpu/ops/wide.py update_range_wide).  Bound: as occ_pair, with 8 B
+// more of output per request.
+//
 // ptxas (sm_90a, -Xptxas=-v): occ_pair 32 registers (V = 3) and 36 (V = 5);
-// occ 56 and 61 registers, 46,144 and 46,032 bytes of shared memory.
+// occ_pair_wide 32 and 42; occ 56 and 61 registers, 46,144 and 46,032 bytes
+// of shared memory.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -98,6 +112,11 @@ __device__ __forceinline__ int64_t load_once(const int64_t* p) {
 }
 __device__ __forceinline__ int32_t load_once(const int32_t* p) { return __ldcs(p); }
 __device__ __forceinline__ void store_once(uint32_t* p, uint32_t v) { __stcs(p, v); }
+
+// A read-only int64 load (the wide variants' group bases and SA values).
+__device__ __forceinline__ int64_t ldg64(const int64_t* p) {
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(p));
+}
 
 __device__ __forceinline__ uint4 ones4() { return make_uint4(kFull, kFull, kFull, kFull); }
 
@@ -154,6 +173,10 @@ __device__ __forceinline__ const uint32_t* row_of(const uint32_t* blocks, uint32
   return blocks + (int64_t)blk * row_words;
 }
 
+// A rank as the kernels write it: uint32 (narrow) or int64 (wide).
+template <bool kWide>
+using RankOut = std::conditional_t<kWide, int64_t, uint32_t>;
+
 // Occ of one request by its pair of lanes (both return it).  All 32 lanes
 // of the warp call it together.
 template <int V>
@@ -166,12 +189,18 @@ __device__ __forceinline__ uint32_t pair_occ(const uint32_t* __restrict__ blocks
   return ms + c;
 }
 
-template <int V>
+// The wide variant (kWide) serves texts of 2^32 symbols and more: a row's
+// milestones are relative to its group of 2^group_shift blocks, whose
+// absolute counts sit in ms_base (int64 [groups, card], a few KB that stay
+// in L2), and the ranks are written as int64.  Lane 0 of the pair reads the
+// two group bases while the pair reads the rows.  The narrow instantiation
+// compiles to the code it had before.
+template <int V, bool kWide>
 __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
     const uint32_t* __restrict__ blocks, int64_t nbits, int row_words, int card,
-    const int32_t* __restrict__ codes, const int64_t* __restrict__ pos_a,
-    const int64_t* __restrict__ pos_b, const int32_t* __restrict__ sym, int64_t n,
-    uint32_t* __restrict__ occ_a, uint32_t* __restrict__ occ_b) {
+    const int32_t* __restrict__ codes, const int64_t* __restrict__ ms_base, int group_shift,
+    const int64_t* __restrict__ pos_a, const int64_t* __restrict__ pos_b, const int32_t* __restrict__ sym,
+    int64_t n, RankOut<kWide>* __restrict__ occ_a, RankOut<kWide>* __restrict__ occ_b) {
   const int64_t q = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 1;
   const uint32_t h = threadIdx.x & 1u;
   // Lanes past the end serve the last request again and store nothing, so
@@ -179,10 +208,15 @@ __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
   const int64_t i = q < n ? q : n - 1;
   // Lane 0 of the pair loads and clamps the request and broadcasts it.
   Req a{}, b{};
+  int64_t base_a = 0, base_b = 0;
   if (h == 0) {
     const int s = load_once(sym + i);
     a = make_req(load_once(pos_a + i), s, nbits, card, codes);
     b = make_req(load_once(pos_b + i), s, nbits, card, codes);
+    if constexpr (kWide) {
+      base_a = ldg64(ms_base + (int64_t)(a.blk >> group_shift) * card + a.sym);
+      base_b = ldg64(ms_base + (int64_t)(b.blk >> group_shift) * card + a.sym);
+    }
   }
   const uint32_t packed = __shfl_sync(kFull, a.local | (b.local << 8) | (a.sym << 16) | (a.code << 24), 0, 2);
   a.blk = __shfl_sync(kFull, a.blk, 0, 2);
@@ -202,8 +236,13 @@ __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
   uint32_t c = half_count(acc_a, h, a.local) | (half_count(acc_b, h, b.local) << 16);
   c += __shfl_xor_sync(kFull, c, 1, 2);
   if (h == 0 && q < n) {
-    store_once(occ_a + q, ms_a + (c & 0xFFFFu));
-    store_once(occ_b + q, ms_b + (c >> 16));
+    if constexpr (kWide) {
+      occ_a[q] = base_a + ms_a + (c & 0xFFFFu);
+      occ_b[q] = base_b + ms_b + (c >> 16);
+    } else {
+      store_once(occ_a + q, ms_a + (c & 0xFFFFu));
+      store_once(occ_b + q, ms_b + (c >> 16));
+    }
   }
 }
 
@@ -340,6 +379,32 @@ bool rank_part_fits(int row_words, int card) {
   return V * 8 + card <= 4 * kRankPieces<V> && row_words >= 4 * kRankPieces<V>;
 }
 
+template <bool kWide>
+int launch_occ_pair(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes, int card,
+                    const void* codes, const void* ms_base, int group_shift, const void* pos_a,
+                    const void* pos_b, const void* sym, int64_t n, void* occ_a, void* occ_b, void* stream) {
+  if (int rc = set_device(device)) return rc;
+  if (n > 0) {
+    const unsigned grid = (unsigned)((n * 2 + kThreads - 1) / kThreads);
+    const int64_t nbits = num_blocks * 256;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (nplanes == 3) {
+      occ_pair_kernel<3, kWide><<<grid, kThreads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
+          group_shift, (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
+          (RankOut<kWide>*)occ_a, (RankOut<kWide>*)occ_b);
+    } else if (nplanes == 5) {
+      occ_pair_kernel<5, kWide><<<grid, kThreads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
+          group_shift, (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
+          (RankOut<kWide>*)occ_a, (RankOut<kWide>*)occ_b);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` (the caller's current PyTorch stream) and returns
@@ -348,26 +413,18 @@ extern "C" int awry_occ_pair(int device, const void* blocks, int64_t num_blocks,
                              int nplanes, int card, const void* codes, const void* pos_a,
                              const void* pos_b, const void* sym, int64_t n, void* occ_a,
                              void* occ_b, void* stream) {
-  if (int rc = set_device(device)) return rc;
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n * 2 + kThreads - 1) / kThreads);
-    const int64_t nbits = num_blocks * 256;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (nplanes == 3) {
-      occ_pair_kernel<3><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
-          (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
-          (uint32_t*)occ_a, (uint32_t*)occ_b);
-    } else if (nplanes == 5) {
-      occ_pair_kernel<5><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
-          (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
-          (uint32_t*)occ_a, (uint32_t*)occ_b);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_occ_pair<false>(device, blocks, num_blocks, row_words, nplanes, card, codes, nullptr, 0, pos_a,
+                                pos_b, sym, n, occ_a, occ_b, stream);
+}
+
+// The wide variant: ms_base int64 [groups, card], group_shift log2 of the
+// blocks per group; occ_a and occ_b int64.
+extern "C" int awry_occ_pair_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                  int nplanes, int card, const void* codes, const void* ms_base,
+                                  int group_shift, const void* pos_a, const void* pos_b, const void* sym,
+                                  int64_t n, void* occ_a, void* occ_b, void* stream) {
+  return launch_occ_pair<true>(device, blocks, num_blocks, row_words, nplanes, card, codes, ms_base, group_shift,
+                               pos_a, pos_b, sym, n, occ_a, occ_b, stream);
 }
 
 extern "C" int awry_occ(int device, const void* blocks, int64_t num_blocks, int row_words,

@@ -19,7 +19,10 @@ Every query runs on ``device`` (None: the card, cuda:0, which raises
 without one; "cpu" runs the kernels' plain versions): the batch calls and
 the scalar string calls through the FmQueryEngine built with the facade,
 the search primitives through ops.rank on one-element tensors.  A failed
-engine construction raises; nothing falls back to another device.
+engine construction raises; nothing falls back to another device.  An index
+of 2**32 symbols and more is served in the 64-bit layout (ops/wide.py):
+``update_range_with_symbol`` and ``backstep`` then launch the wide variants
+of ``occ_pair`` and ``backstep``; ``wide=True`` forces that on any index.
 """
 
 from __future__ import annotations
@@ -104,9 +107,9 @@ class FmIndex:
     """The reference's FM-index handle over FmIndexData, served by an
     FmQueryEngine on ``device``."""
 
-    def __init__(self, data: FmIndexData, *, device=None):
+    def __init__(self, data: FmIndexData, *, device=None, wide: bool | None = None):
         self.data = data
-        self.engine = FmQueryEngine(data, device=device)
+        self.engine = FmQueryEngine(data, device=device, wide=wide)
 
     @property
     def device(self) -> torch.device:
@@ -160,7 +163,7 @@ class FmIndex:
 
     def update_range_with_symbol(self, search_range: SearchRange, symbol: Symbol) -> SearchRange:
         """One LF-mapping step of a range (src/fm_index.rs:559-582): an
-        ``occ_pair`` launch on the card."""
+        ``occ_pair`` launch on the card (``occ_pair_wide`` on a wide index)."""
         s, e = rank.update_range(
             self.engine.device_index,
             self._one(search_range.start_ptr),
@@ -171,7 +174,7 @@ class FmIndex:
 
     def backstep(self, search_pointer: int) -> int:
         """One LF step of a row (src/fm_index.rs:585-593): a ``backstep``
-        launch on the card."""
+        launch on the card (``backstep_wide`` on a wide index)."""
         return int(rank.backstep(self.engine.device_index, self._one(search_pointer))[0])
 
     # -- accessors ----------------------------------------------------------

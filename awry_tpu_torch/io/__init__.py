@@ -1,5 +1,6 @@
+import importlib
+
 from .artifact import load_artifact, save_artifact
-from .awry_format import load_awry, save_awry
 from .sequence_io import (
     STREAM_THRESHOLD_BYTES,
     SequenceData,
@@ -25,3 +26,11 @@ __all__ = [
     "stream_fasta",
     "stream_fastq",
 ]
+
+
+def __getattr__(name: str):
+    # The .awry reader re-derives its k-mer table on a device: it loads torch
+    # on first use, so that the artifact and the readers import without it.
+    if name in ("load_awry", "save_awry"):
+        return getattr(importlib.import_module(".awry_format", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,7 +21,9 @@ The k-mer section written holds this package's dense-radix ranges (the
 reference never reads its table's entries).  On load the stored table is
 skipped and the table is re-derived from the index on a device by the
 build's own breadth-wise path (ops/kmer.py, through the ``occ`` kernel on
-the card), so a loaded table is right whoever wrote the file.  A ``.awry``
+the card), so a loaded table is right whoever wrote the file; a file of
+2**32 symbols and more raises NotImplementedError until ``occ`` has a wide
+variant.  A ``.awry``
 index carries no locate marks and no packed text: the engine serves it by
 the classic path and the row-sampled walk (ops/locate.py).
 """
@@ -119,6 +121,12 @@ def load_awry(path: str, *, device=None, strict: bool = False) -> FmIndexData:
         block_stride = nv * 32 + slots * 8
         if nb * block_stride > size:
             raise ValueError(f"truncated .awry file: {nb} blocks x {block_stride} B exceed the file")
+        if bwt_len >= 2**32:
+            # The k-mer table is re-derived through the 32-bit occ kernel.
+            raise NotImplementedError(
+                f"bwt_len={bwt_len}: loading a .awry file of 2**32 symbols and more needs the wide variant of "
+                "occ to re-derive its k-mer table, not ported yet (ROADMAP Queue 1: an occ wide variant)"
+            )
         raw = np.frombuffer(read_exact(nb * block_stride, "block section"), dtype=np.uint8).reshape(nb, block_stride)
         planes = raw[:, : nv * 32].copy().view("<u4").reshape(nb, nv, WORDS_PER_WINDOW).astype(np.uint32)
         milestones = raw[:, nv * 32 :].copy().view("<u8")[:, : alphabet.cardinality].astype(np.uint64)

@@ -27,7 +27,9 @@ without packed text, text_sampled_sa without marks, sampled_sa with them.
 (fused rows, prefix sums, codes): the device k-mer build (ops/kmer.py).
 
 Tables are int32 tensors holding the uint32 bit patterns (numpy views, not
-value casts); prefix sums and record starts are int64.
+value casts); prefix sums and record starts are int64.  A text of 2**32
+symbols and more ships through ops/wide.py instead (``to_device_wide``):
+the same fields, SA values and the k-mer table int64, and ``bases`` set.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 from ..alphabet import Alphabet, code_to_index_table, index_to_code_table, index_to_dense_table
 from ..index import FmIndexData
-from .kernels import as_int32_bits
+from .kernels import WideBases, as_int32_bits
 
 TEXT_PAD_WORDS = 64  # zero words prepended to the device text (ops/verify.py)
 
@@ -120,6 +122,13 @@ class FmDeviceIndex:
     verify_windows_s: int = 0
     verify_windows_w: int = 0
     vw_row_words: int = SLOT_ROW_WORDS
+    # The 64-bit index (ops/wide.py): the group bases its rows' milestones
+    # and mark milestones are relative to; None on the narrow index.
+    bases: WideBases | None = None
+
+    @property
+    def wide(self) -> bool:
+        return self.bases is not None
 
     @property
     def device(self) -> torch.device:
@@ -197,9 +206,15 @@ def to_device(index: FmIndexData, device=None, *, minimal: bool = False, slots: 
     the slot regime's fat rows when slot_regime_capable holds (False: never)."""
     device = resolve_device(device)
     if index.bwt_len >= 2**32:
+        if minimal:
+            raise NotImplementedError(
+                f"bwt_len={index.bwt_len}: the device k-mer build ranks through the 32-bit occ kernel; a text "
+                "of 2**32 symbols and more needs its wide variant, not ported yet (ROADMAP Queue 1: an occ "
+                "wide variant); build its k-mer table on the host"
+            )
         raise NotImplementedError(
-            "texts of 4 Gbp and more need the 64-bit engine, not ported yet (ROADMAP Queue 1: "
-            "the 64-bit engine)"
+            f"bwt_len={index.bwt_len}: a text of 2**32 symbols and more ships through the 64-bit layout: "
+            "FmQueryEngine(index, wide=True) or ops.wide.to_device_wide"
         )
 
     def put(arr: np.ndarray) -> torch.Tensor:

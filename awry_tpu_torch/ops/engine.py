@@ -10,7 +10,8 @@ on the host with vectorized NumPy.  The verify path is the slot regime
 (count_locate_verify_t).  An index without marks or packed text (loaded
 from a ``.awry`` file) is served by the classic path alone, its locate by
 the row-sampled walk; ``use_verify=False`` forces the classic path on any
-index.
+index.  A text of 2**32 symbols and more ships in the 64-bit layout
+(ops/wide.py) and is served by the classic path alone (``wide``).
 
 The engine runs on the card: ``device=None`` means ``cuda:0`` and raises
 when no CUDA device exists; ``device="cpu"`` runs the kernels' plain
@@ -31,6 +32,7 @@ from .device_index import TEXT_PAD_WORDS, resolve_device, to_device
 from .locate import count_locate_capped_t, lf_walk
 from .search import count_batch_kernel_t, search_ranges_t, unpack_crumbs_t, unpack_nibbles_t
 from .verify import count_locate_slots_t, count_locate_verify_t, switch_step, unpack_verify_bundle, wide_groups
+from .wide import to_device_wide
 
 # Rows per over-cap locate slab (bounds the device expansion's memory).
 _OVERCAP_WALK_SLAB = 8 * 1024 * 1024
@@ -88,7 +90,7 @@ class FmQueryEngine:
     """Batch count/locate engine over an FM-index shipped to one device."""
 
     def __init__(self, index: FmIndexData, *, device=None, slots: bool = True, use_verify: bool | None = None,
-                 strict: bool = False):
+                 strict: bool = False, wide: bool | None = None):
         """``slots``: serve through the slot regime when the index is
         slot-capable (False: the switch-step path on any index).
         ``use_verify``: None serves through the verify path whenever the
@@ -96,15 +98,22 @@ class FmQueryEngine:
         ``strict``: value-validate the index before shipping it
         (FmIndexData.validate(strict=True)), and check pre-encoded wire
         batches for symbols and lengths out of range, which would otherwise
-        be clamped into wrong answers."""
+        be clamped into wrong answers.  ``wide``: None ships the index in
+        the 64-bit layout (ops/wide.py) exactly when ``bwt_len >= 2**32``;
+        True forces it on any index, False refuses it.  The wide index is
+        served by the classic path alone (no verify path, no slot rows)."""
         self.device = resolve_device(device)
         self.strict = strict
         if strict:
             index.validate(strict=True)
+        self.wide = index.bwt_len >= 2**32 if wide is None else bool(wide)
         self._verify_enabled = (use_verify is None or use_verify) and index.has_marks and (
             index.text_packed is not None
-        )
-        self.device_index = dev = to_device(index, self.device, slots=slots and self._verify_enabled)
+        ) and not self.wide
+        if self.wide:
+            self.device_index = dev = to_device_wide(index, self.device)
+        else:
+            self.device_index = dev = to_device(index, self.device, slots=slots and self._verify_enabled)
         # Serving-shape counters, updated per verify batch.
         self.stats = {
             "batches": 0,
@@ -176,6 +185,15 @@ class FmQueryEngine:
         qt, ql, flags = self._upload(*self.encode_queries(queries))
         counts = count_batch_kernel_t(self.device_index, qt, ql, **flags)
         return counts.cpu().numpy()[: len(queries)].astype(np.uint64)
+
+    def count_batch_dispatch(self, encoded) -> torch.Tensor:
+        """Counts of a pre-encoded batch (``(wire, qlens[, n])`` from
+        encode_queries) as the device's int64 tensor, padded to the wire's
+        batch, with no host sync: every search step runs, masked, so a
+        caller can dispatch several engines before it reads any."""
+        wire, qlens = encoded[:2]
+        qt, ql, flags = self._upload(wire, qlens)
+        return count_batch_kernel_t(self.device_index, qt, ql, **flags, skip_idle=False)
 
     def count_locate_arrays(self, queries, *, cap: int = 8):
         """Bulk count+locate of one batch.  Returns ``(counts, seq_idx, local,

@@ -27,10 +27,19 @@ it replaces, its bound and its design):
   fed by query ranges into a ``[B, cap]`` output, as the classic path asks
   for them (one kernel for both, counted under ``sampled_walk``).
 
+The 64-bit engine (ops/wide.py) runs four wide variants, each its narrow
+twin's CUDA template instantiated over the group bases (``WideBases``: a
+wide index's rows hold milestones and mark milestones relative to their
+group of blocks) and 64-bit values: ``occ_pair_wide`` (int64 ranks),
+``backstep_wide`` (int64 step and whole mark rank), ``marked_walk_wide``
+(int64 SA values) and ``sampled_walk_wide`` / ``sampled_walk_ranges_wide``
+(64-bit rows, steps and SA values; a 64-bit quotient for an sa_ratio that is
+no power of two).  Each keeps its plain version beside it, in int64.
+
 Tables are int32 tensors holding uint32 bit patterns; positions are int64;
 outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``), but
-for backstep's stepped rows and the walks' text positions, which are int64
-positions.
+for backstep's stepped rows, the walks' text positions and every output of
+the wide variants, which are int64.
 
 ``chip_smoke.py`` holds every kernel against its plain version on the card;
 ``scripts/rank_kernel_study.py --kernels window_read,marked_walk,sampled_walk``
@@ -53,6 +62,7 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -149,6 +159,20 @@ def _lib():
             lib.awry_sampled_walk.argtypes = [*walk, p, i64, p, p, p]
             lib.awry_sampled_walk_ranges.restype = i32
             lib.awry_sampled_walk_ranges.argtypes = [*walk, p, p, i64, i32, p, p, p]
+            # The wide variants: the narrow heads with card, the group bases
+            # and group_shift after c2i.
+            lib.awry_occ_pair_wide.restype = i32
+            lib.awry_occ_pair_wide.argtypes = [i32, p, i64, i32, i32, i32, p, p, i32, p, p, p, i64, p, p, p]
+            head = [i32, p, i64, i32, i32, p, p, p, i32, p]
+            lib.awry_backstep_wide.restype = i32
+            lib.awry_backstep_wide.argtypes = [*head, p, i32, i32, i32, p, i64, p, p, p]
+            lib.awry_marked_walk_wide.restype = i32
+            lib.awry_marked_walk_wide.argtypes = [*head, p, i32, i32, i32, i32, p, i64, i64, p, i64, p, p]
+            wide_walk = [*head, i32, i32, ctypes.c_uint64, p, i64, i64]
+            lib.awry_sampled_walk_wide.restype = i32
+            lib.awry_sampled_walk_wide.argtypes = [*wide_walk, p, i64, p, p, p]
+            lib.awry_sampled_walk_ranges_wide.restype = i32
+            lib.awry_sampled_walk_ranges_wide.argtypes = [*wide_walk, p, p, i64, i32, p, p, p]
             _lib_handle = lib
         return _lib_handle
 
@@ -371,25 +395,37 @@ occ.launches = 0
 # -- backstep ------------------------------------------------------------------
 
 
-def _lf_rows(r, p, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int):
+def _lf_rows(r, p, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int, bases=None):
     """LF of each fetched row (int64): 0 for sentinel rows, whose rank uses
-    ``ambiguity_idx``."""
+    ``ambiguity_idx``; with ``bases`` (a wide index's WideBases) the row's
+    milestone is relative to its group."""
     sym = _symbol_rows(r, p, c2i, nplanes)
     sentinel = sym == 0
     safe = torch.where(sentinel, ambiguity_idx, sym)
     stepped = prefix_sums[safe] + _occ_rows(r, p, safe, codes, nplanes) - 1
+    if bases is not None:
+        stepped = stepped + bases.milestones[p >> (8 + bases.shift), safe]
     return torch.where(sentinel, 0, stepped)
 
 
-def backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int):
-    """Plain version of backstep (gather + SWAR popcounts)."""
+def _backstep_rows(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int,
+                   bases=None):
+    """(LF-stepped row, (mark_rank << 1) | mark_bit) as int64, the mark rank
+    relative to the row's group plus its base with ``bases``."""
     p, r = _fetch_rows(blocks, rows)
-    stepped = _lf_rows(r, p, prefix_sums, codes, c2i, nplanes, ambiguity_idx)
+    stepped = _lf_rows(r, p, prefix_sums, codes, c2i, nplanes, ambiguity_idx, bases)
     local = p & 255
     before = _word_masks(local, (1 << (local & 31)) - 1)
     marks = r[:, mark_offset : mark_offset + 8]
     mark_rank = r[:, mark_offset + 8] + popcount32(marks & before).sum(dim=1)
-    packed = (mark_rank << 1) | _bit_at(r, mark_offset, p)
+    if bases is not None:
+        mark_rank = mark_rank + bases.marks[p >> (8 + bases.shift)]
+    return stepped, (mark_rank << 1) | _bit_at(r, mark_offset, p)
+
+
+def backstep_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int):
+    """Plain version of backstep (gather + SWAR popcounts)."""
+    stepped, packed = _backstep_rows(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
     return stepped, as_int32_bits(packed)
 
 
@@ -453,6 +489,20 @@ backstep.launches = 0
 # -- marked_walk ---------------------------------------------------------------
 
 
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """int32 uint32 bit patterns -> their int64 values; int64 unchanged."""
+    return x if x.dtype == torch.int64 else x.to(torch.int64) & _FULL
+
+
+def _sa_values(read, sa: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 SA values at idx, clamped into the table: one k=1 ``read``
+    (window_read or its plain version) of an int32 table of uint32 bits, a
+    plain gather of an int64 one (a wide index's)."""
+    if sa.dtype == torch.int64:
+        return sa[idx.clamp(0, sa.shape[0] - 1)]
+    return _widen(read(sa, idx, 1)[:, 0])
+
+
 def _text_pos_mod(sa_vals: torch.Tensor, steps: torch.Tensor, bwt_len: int) -> torch.Tensor:
     """(sa_vals + steps) % bwt_len for operands below bwt_len (int64: one
     conditional subtraction, no wraparound)."""
@@ -478,9 +528,7 @@ def walk_by_visits(visit, read, blocks, rows, prefix_sums, codes, c2i, nplanes: 
     # Final visit: the row is marked (or the walk hit its bound); its mark
     # rank indexes the marked SA values.  k=1 reads index 0 exactly.
     _, packed = visit(blocks, pos, *args)
-    mark_rank = (packed.to(torch.int64) & _FULL) >> 1
-    sa_vals = read(sampled_sa, mark_rank, 1)[:, 0].to(torch.int64) & _FULL
-    return _text_pos_mod(sa_vals, steps, bwt_len)
+    return _text_pos_mod(_sa_values(read, sampled_sa, _widen(packed) >> 1), steps, bwt_len)
 
 
 def marked_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int,
@@ -530,11 +578,12 @@ marked_walk.launches = 0
 
 
 def sampled_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int, sa_ratio: int,
-                       sampled_sa, bwt_len: int) -> torch.Tensor:
+                       sampled_sa, bwt_len: int, bases=None) -> torch.Tensor:
     """Plain version of sampled_walk: LF steps of the live lanes (each a
     backstep_plain's LF), lanes freezing once their row is a multiple of
     sa_ratio, then the k=1 read of the sampled SA; -1 for a lane still
-    walking after bwt_len steps."""
+    walking after bwt_len steps.  ``bases``: a wide index's WideBases (its
+    sampled SA int64)."""
     pos = rows.clamp(0, bwt_len - 1)
     steps = torch.zeros_like(pos)
     live = torch.nonzero(pos % sa_ratio != 0)[:, 0]
@@ -542,11 +591,10 @@ def sampled_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, ambi
         if not live.numel():
             break
         p, r = _fetch_rows(blocks, pos[live])
-        pos[live] = _lf_rows(r, p, prefix_sums, codes, c2i, nplanes, ambiguity_idx).clamp(0, bwt_len - 1)
+        pos[live] = _lf_rows(r, p, prefix_sums, codes, c2i, nplanes, ambiguity_idx, bases).clamp(0, bwt_len - 1)
         steps[live] += 1
         live = live[pos[live] % sa_ratio != 0]
-    sa_vals = window_read_plain(sampled_sa, pos // sa_ratio, 1)[:, 0].to(torch.int64) & _FULL
-    out = _text_pos_mod(sa_vals, steps, bwt_len)
+    out = _text_pos_mod(_sa_values(window_read_plain, sampled_sa, pos // sa_ratio), steps, bwt_len)
     out[live] = -1
     return out
 
@@ -680,4 +728,234 @@ def sampled_walk_ranges(blocks, starts, counts, cap: int, prefix_sums, codes, c2
         )
         _launch_check(rc, "sampled_walk_ranges")
         sampled_walk.launches += 1
+    return out
+
+
+# -- the wide variants -----------------------------------------------------------
+
+
+class WideBases(NamedTuple):
+    """What a wide index's fused rows are relative to (ops/wide.py): its
+    rows' milestones and mark milestones count from the start of their group
+    of 2**shift blocks, and these tables hold each group's absolute counts."""
+
+    milestones: torch.Tensor  # int64 [groups, cardinality]
+    marks: torch.Tensor  # int64 [groups] (zeros on an index without marks)
+    shift: int  # log2 of the blocks per group: at most 24, so relative counts fit 32 bits
+
+
+def _check_bases(kernel: str, blocks, bases: WideBases, card: int, marks: bool) -> None:
+    """The group tables cover every block's group, with ``card`` milestones
+    each (and a mark base each when ``marks``)."""
+    groups = -(-blocks.shape[0] // (1 << bases.shift)) if 0 <= bases.shift <= 24 else -1
+    _check("bases.milestones", bases.milestones, torch.int64, 2)
+    _check("bases.marks", bases.marks, torch.int64, 1)
+    if groups < 1 or bases.milestones.shape[0] < groups or bases.milestones.shape[1] != card or (
+        marks and bases.marks.shape[0] < groups
+    ):
+        raise ValueError(
+            f"{kernel}: group tables {tuple(bases.milestones.shape)}, {tuple(bases.marks.shape)} at shift "
+            f"{bases.shift} do not cover {blocks.shape[0]} blocks of {card} symbols"
+        )
+
+
+def _wide_head(blocks, bases: WideBases, prefix_sums, codes, c2i, nplanes: int) -> tuple:
+    """The leading arguments the wide walks' and backstep's C entries share."""
+    return (blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
+            prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), codes.shape[0], bases.milestones.data_ptr())
+
+
+def occ_pair_wide_plain(blocks, bases: WideBases, pos_a, pos_b, sym, codes, nplanes: int):
+    """Plain version of occ_pair_wide (gather + SWAR popcount, int64)."""
+    s = sym.clamp(0, codes.shape[0] - 1)
+
+    def occ(pos):
+        p, rows = _fetch_rows(blocks, pos)
+        return _occ_rows(rows, p, s, codes, nplanes) + bases.milestones[p >> (8 + bases.shift), s.to(torch.int64)]
+
+    return occ(pos_a), occ(pos_b)
+
+
+def occ_pair_wide(blocks, bases: WideBases, pos_a, pos_b, sym, codes, nplanes: int):
+    """(int64[R], int64[R]): occ_pair over a wide index's fused rows, whose
+    milestones are relative to their group (``bases``); positions may pass
+    2**32."""
+    if _on_cpu(blocks, bases.milestones, pos_a, pos_b, sym, codes):
+        return occ_pair_wide_plain(blocks, bases, pos_a, pos_b, sym, codes, nplanes)
+    _check("pos_a", pos_a, torch.int64, 1)
+    _check_rank_args("occ_pair_wide", blocks, pos_b, sym, codes, nplanes)
+    _check_bases("occ_pair_wide", blocks, bases, codes.shape[0], marks=False)
+    r = pos_a.shape[0]
+    if pos_b.shape[0] != r:
+        raise ValueError("occ_pair_wide: pos_a, pos_b and sym must have one length")
+    occ_a = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    occ_b = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    if r:
+        rc = _lib().awry_occ_pair_wide(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes, codes.shape[0],
+            codes.data_ptr(), bases.milestones.data_ptr(), bases.shift, pos_a.data_ptr(), pos_b.data_ptr(),
+            sym.data_ptr(), r, occ_a.data_ptr(), occ_b.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "occ_pair_wide")
+        occ_pair_wide.launches += 1
+    return occ_a, occ_b
+
+
+occ_pair_wide.launches = 0
+
+
+def backstep_wide_plain(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                        ambiguity_idx: int):
+    """Plain version of backstep_wide (gather + SWAR popcounts, int64)."""
+    return _backstep_rows(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, bases)
+
+
+def backstep_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                  ambiguity_idx: int):
+    """(int64[R], int64[R]): backstep over a wide index's fused rows: the
+    LF-stepped row and ``(mark_rank << 1) | mark_bit`` with the whole rank."""
+    if _on_cpu(blocks, bases.milestones, bases.marks, rows, prefix_sums, codes, c2i):
+        return backstep_wide_plain(blocks, bases, rows, prefix_sums, codes, c2i, nplanes, mark_offset,
+                                   ambiguity_idx)
+    _check_walk_args("backstep_wide", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, mark_offset)
+    _check_bases("backstep_wide", blocks, bases, codes.shape[0], marks=True)
+    r = rows.shape[0]
+    stepped = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    mark = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    if r:
+        rc = _lib().awry_backstep_wide(
+            *_wide_head(blocks, bases, prefix_sums, codes, c2i, nplanes), bases.marks.data_ptr(), bases.shift,
+            mark_offset, ambiguity_idx, rows.data_ptr(), r, stepped.data_ptr(), mark.data_ptr(),
+            _stream(blocks.device),
+        )
+        _launch_check(rc, "backstep_wide")
+        backstep_wide.launches += 1
+    return stepped, mark
+
+
+backstep_wide.launches = 0
+
+
+def marked_walk_wide_plain(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                           ambiguity_idx: int, mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """Plain version of marked_walk_wide: the walk by visits of
+    backstep_wide_plain, then the int64 marked SA value at the whole rank."""
+
+    def visit(b, pos, *args):
+        return backstep_wide_plain(b, bases, pos, *args)
+
+    return walk_by_visits(visit, window_read_plain, blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset,
+                          ambiguity_idx, mark_ratio, sampled_sa, bwt_len)
+
+
+def marked_walk_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                     ambiguity_idx: int, mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """int64[R]: marked_walk over a wide index: relative milestones and mark
+    milestones (``bases``), the whole mark rank, sampled_sa int64[S]."""
+    if _on_cpu(blocks, bases.milestones, bases.marks, rows, prefix_sums, codes, c2i, sampled_sa):
+        return marked_walk_wide_plain(blocks, bases, rows, prefix_sums, codes, c2i, nplanes, mark_offset,
+                                      ambiguity_idx, mark_ratio, sampled_sa, bwt_len)
+    _check_walk_args("marked_walk_wide", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, mark_offset)
+    _check_bases("marked_walk_wide", blocks, bases, codes.shape[0], marks=True)
+    _check("sampled_sa", sampled_sa, torch.int64, 1)
+    if mark_ratio < 1 or sampled_sa.shape[0] < 1 or bwt_len < 1:
+        raise ValueError(f"marked_walk_wide: mark_ratio={mark_ratio}, {sampled_sa.shape[0]} SA values, "
+                         f"bwt_len={bwt_len}")
+    r = rows.shape[0]
+    out = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    if r:
+        rc = _lib().awry_marked_walk_wide(
+            *_wide_head(blocks, bases, prefix_sums, codes, c2i, nplanes), bases.marks.data_ptr(), bases.shift,
+            mark_offset, ambiguity_idx, mark_ratio, sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len,
+            rows.data_ptr(), r, out.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "marked_walk_wide")
+        marked_walk_wide.launches += 1
+    return out
+
+
+marked_walk_wide.launches = 0
+
+
+def _check_wide_sampling(kernel: str, blocks, bases: WideBases, codes, sa_ratio: int, sampled_sa, bwt_len: int):
+    if not 1 <= bwt_len <= blocks.shape[0] * 256 or not 1 <= sa_ratio < 2**63 or (
+        sampled_sa.shape[0] != -(-bwt_len // sa_ratio)
+    ):
+        raise ValueError(f"{kernel}: sa_ratio={sa_ratio}, {sampled_sa.shape[0]} SA values, bwt_len={bwt_len}, "
+                         f"{blocks.shape[0]} blocks")
+    _check("sampled_sa", sampled_sa, torch.int64, 1)
+    _check_bases(kernel, blocks, bases, codes.shape[0], marks=False)
+
+
+def sampled_walk_wide_plain(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int,
+                            ambiguity_idx: int, sa_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """Plain version of sampled_walk_wide (int64 rows, steps and SA values)."""
+    return sampled_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
+                              bwt_len, bases)
+
+
+def sampled_walk_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int, ambiguity_idx: int,
+                      sa_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """int64[R]: sampled_walk over a wide index (``bases``; sampled_sa
+    int64, rows and the modulo in 64 bits), -1 for a row still walking after
+    bwt_len steps; no check of the walks' ends (the caller's, as for
+    sampled_walk_launch), no device sync."""
+    if _on_cpu(blocks, bases.milestones, rows, prefix_sums, codes, c2i, sampled_sa):
+        return sampled_walk_wide_plain(blocks, bases, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx,
+                                       sa_ratio, sampled_sa, bwt_len)
+    _check_walk_args("sampled_walk_wide", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx)
+    _check_wide_sampling("sampled_walk_wide", blocks, bases, codes, sa_ratio, sampled_sa, bwt_len)
+    r = rows.shape[0]
+    out = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    if r:
+        cursor = torch.zeros(1, dtype=torch.int64, device=blocks.device)
+        rc = _lib().awry_sampled_walk_wide(
+            *_wide_head(blocks, bases, prefix_sums, codes, c2i, nplanes), bases.shift, ambiguity_idx, sa_ratio,
+            sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len, rows.data_ptr(), r, cursor.data_ptr(),
+            out.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "sampled_walk_wide")
+        sampled_walk_wide.launches += 1
+    return out
+
+
+sampled_walk_wide.launches = 0
+
+
+def sampled_walk_ranges_wide_plain(blocks, bases: WideBases, starts, counts, cap: int, prefix_sums, codes, c2i,
+                                   nplanes: int, ambiguity_idx: int, sa_ratio: int, sampled_sa,
+                                   bwt_len: int) -> torch.Tensor:
+    """Plain version of sampled_walk_ranges_wide: the padded rows walked by
+    sampled_walk_wide_plain."""
+    rows = slot_rows(starts, counts, cap).reshape(-1)
+    return sampled_walk_wide_plain(blocks, bases, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio,
+                                   sampled_sa, bwt_len).reshape(-1, cap)
+
+
+def sampled_walk_ranges_wide(blocks, bases: WideBases, starts, counts, cap: int, prefix_sums, codes, c2i,
+                             nplanes: int, ambiguity_idx: int, sa_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """int64[B, cap]: sampled_walk_ranges over a wide index, in one launch
+    (counted under ``sampled_walk_wide.launches``); -1 marks a walk that
+    could not end, which the caller checks."""
+    if not 1 <= cap <= 1 << 20:
+        raise ValueError(f"sampled_walk_ranges_wide: cap={cap}")
+    if _on_cpu(blocks, bases.milestones, starts, counts, prefix_sums, codes, c2i, sampled_sa):
+        return sampled_walk_ranges_wide_plain(blocks, bases, starts, counts, cap, prefix_sums, codes, c2i, nplanes,
+                                              ambiguity_idx, sa_ratio, sampled_sa, bwt_len)
+    _check_walk_args("sampled_walk_ranges_wide", blocks, starts, prefix_sums, codes, c2i, nplanes, ambiguity_idx)
+    _check_wide_sampling("sampled_walk_ranges_wide", blocks, bases, codes, sa_ratio, sampled_sa, bwt_len)
+    _check("counts", counts, torch.int64, 1)
+    b = starts.shape[0]
+    if counts.shape[0] != b:
+        raise ValueError(f"sampled_walk_ranges_wide: {b} starts, {counts.shape[0]} counts")
+    out = torch.empty((b, cap), dtype=torch.int64, device=blocks.device)
+    if b:
+        cursor = torch.zeros(1, dtype=torch.int64, device=blocks.device)
+        rc = _lib().awry_sampled_walk_ranges_wide(
+            *_wide_head(blocks, bases, prefix_sums, codes, c2i, nplanes), bases.shift, ambiguity_idx, sa_ratio,
+            sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len, starts.data_ptr(), counts.data_ptr(), b, cap,
+            cursor.data_ptr(), out.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "sampled_walk_ranges_wide")
+        sampled_walk_wide.launches += 1
     return out

@@ -19,6 +19,10 @@ ranges' live slots in one ``sampled_walk_ranges`` launch, with no device
 sync: a walk that cannot end (a corrupt index) writes -1, which the
 engine's assembly refuses.
 
+On a wide index (ops/wide.py) the walks take the kernels' wide variants
+(``marked_walk_wide``, ``sampled_walk_wide``), and the mark-1 SA read is a
+window_read of two int32 words per int64 SA value.
+
 Ragged per-query outputs are two-phase: counts -> offsets -> flat fill.
 """
 
@@ -29,12 +33,15 @@ import torch
 from . import kernels
 from .device_index import FmDeviceIndex
 from .search import counts_from_ranges, search_ranges_t
+from .wide import join_words
 
 _FULL = 0xFFFFFFFF
 
 
 def lf_walk(dev: FmDeviceIndex, rows: torch.Tensor) -> torch.Tensor:
     """int64 text position of each BWT row (int64[N] rows)."""
+    if dev.wide:
+        return _lf_walk_wide(dev, rows)
     if not dev.has_marks:
         return kernels.sampled_walk(
             dev.blocks, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.alphabet.ambiguity_idx,
@@ -44,6 +51,26 @@ def lf_walk(dev: FmDeviceIndex, rows: torch.Tensor) -> torch.Tensor:
         return kernels.window_read(dev.text_sampled_sa, rows, 2)[:, 0].to(torch.int64) & _FULL
     return kernels.marked_walk(
         dev.blocks, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.mark_offset,
+        dev.alphabet.ambiguity_idx, dev.mark_ratio, dev.text_sampled_sa, dev.bwt_len,
+    )
+
+
+def _lf_walk_wide(dev: FmDeviceIndex, rows: torch.Tensor) -> torch.Tensor:
+    if not dev.has_marks:
+        out = kernels.sampled_walk_wide(
+            dev.blocks, dev.bases, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
+            dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.sampled_sa, dev.bwt_len,
+        )
+        if out.numel() and bool((out < 0).any()):
+            raise RuntimeError(
+                f"sampled_walk_wide: a row took {dev.bwt_len} LF steps without reaching a sampled row (a corrupt "
+                "index)"
+            )
+        return out
+    if dev.mark_ratio == 1:
+        return join_words(kernels.window_read(dev.text_sampled_sa.view(torch.int32), (rows << 1) | 1, 2))
+    return kernels.marked_walk_wide(
+        dev.blocks, dev.bases, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.mark_offset,
         dev.alphabet.ambiguity_idx, dev.mark_ratio, dev.text_sampled_sa, dev.bwt_len,
     )
 
@@ -69,6 +96,12 @@ def count_locate_capped_t(
         dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor
     )
     counts = counts_from_ranges(starts, ends)
+    if not dev.has_marks and dev.wide:
+        text_pos = kernels.sampled_walk_ranges_wide(
+            dev.blocks, dev.bases, starts, counts, cap, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
+            dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.sampled_sa, dev.bwt_len,
+        )
+        return counts, text_pos, starts, ends
     if not dev.has_marks:
         text_pos = kernels.sampled_walk_ranges(
             dev.blocks, starts, counts, cap, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,

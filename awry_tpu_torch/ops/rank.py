@@ -6,7 +6,9 @@ The LF range update ranks both endpoints through the ``occ_pair`` kernel;
 a batch of single ranks (the device k-mer build) goes through ``occ``; one
 LF step of single rows with their mark bit and mark rank goes through the
 ``backstep`` kernel (the locate walk runs ``marked_walk``, ops/locate.py).
-Positions, ranges and counts are int64; symbols int32.
+On a wide index (ops/wide.py) the range update and the LF step take the
+kernels' wide variants, whose ranks are int64 already.  Positions, ranges
+and counts are int64; symbols int32.
 """
 
 from __future__ import annotations
@@ -19,9 +21,18 @@ from .device_index import FmDeviceIndex
 _FULL = 0xFFFFFFFF
 
 
+def _require_narrow(dev: FmDeviceIndex) -> None:
+    if dev.wide:
+        raise NotImplementedError(
+            "occ has no wide variant yet (ROADMAP Queue 1: an occ wide variant): a text of 2**32 symbols and "
+            "more takes its k-mer table from the host build"
+        )
+
+
 def occurrence_plain(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
     """Occ(pos, sym) as int64 by plain PyTorch (gather + SWAR popcount),
     whatever device the index lives on."""
+    _require_narrow(dev)
     s = sym.clamp(0, dev.alphabet.cardinality - 1)
     return kernels._occ_plain(dev.blocks, pos, s, dev.codes, dev.num_planes)
 
@@ -29,6 +40,7 @@ def occurrence_plain(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -
 def occurrence(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
     """Occ(pos, sym) as int64 from one ``occ`` launch (its plain version for
     CPU tensors).  Every lane is exact: the port has no coverage flags."""
+    _require_narrow(dev)
     occ = kernels.occ(dev.blocks, pos, sym.to(torch.int32), dev.codes, dev.num_planes)
     return occ.to(torch.int64) & _FULL
 
@@ -45,7 +57,13 @@ def seed_range(dev: FmDeviceIndex, sym: torch.Tensor):
 
 def update_range(dev: FmDeviceIndex, starts: torch.Tensor, ends: torch.Tensor, sym: torch.Tensor):
     """One LF-mapping range update: both endpoint ranks from one occ_pair
-    launch (pos_a = start - 1, pos_b = end)."""
+    launch (pos_a = start - 1, pos_b = end; occ_pair_wide on a wide index)."""
+    if dev.wide:
+        occ_a, occ_b = kernels.occ_pair_wide(
+            dev.blocks, dev.bases, starts - 1, ends, sym.to(torch.int32), dev.codes, dev.num_planes
+        )
+        c = prefix_sum_select(dev, sym)
+        return c + occ_a, c + occ_b - 1
     occ_a, occ_b = kernels.occ_pair(
         dev.blocks, starts - 1, ends, sym.to(torch.int32), dev.codes, dev.num_planes
     )
@@ -62,7 +80,14 @@ def symbol_at(dev: FmDeviceIndex, pos: torch.Tensor) -> torch.Tensor:
 def backstep_mark(dev: FmDeviceIndex, pos: torch.Tensor):
     """One marked-walk visit per row from one ``backstep`` launch:
     (LF-stepped row int64 (sentinel rows -> 0), mark bit bool, mark rank
-    int64 = marked rows strictly before the row)."""
+    int64 = marked rows strictly before the row); backstep_wide on a wide
+    index."""
+    if dev.wide:
+        stepped, packed = kernels.backstep_wide(
+            dev.blocks, dev.bases, pos, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.mark_offset,
+            dev.alphabet.ambiguity_idx,
+        )
+        return stepped, (packed & 1) == 1, packed >> 1
     stepped, packed = kernels.backstep(
         dev.blocks, pos, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
         dev.mark_offset, dev.alphabet.ambiguity_idx,

@@ -16,6 +16,7 @@ import torch
 from . import kernels
 from .device_index import FmDeviceIndex
 from .rank import seed_range, update_range
+from .wide import join_words
 
 _FULL = 0xFFFFFFFF
 
@@ -44,6 +45,7 @@ def search_ranges_t(
     num_steps: int | None = None,
     no_sentinel: bool = False,
     seeded_floor: bool = False,
+    skip_idle: bool = True,
 ):
     """Final (or step-``num_steps``) BWT ranges of a query batch.
 
@@ -53,7 +55,8 @@ def search_ranges_t(
     crumb wire cannot encode one).  ``seeded_floor``: the caller guarantees
     no lane is live before step k (every lane k-mer-seeds or is shorter than
     2), so the loop starts at k; otherwise steps with no live lane are
-    skipped after a device->host check of the live mask.
+    skipped after a device->host check of the live mask, unless
+    ``skip_idle`` is False (every step runs, masked, with no host sync).
 
     Returns (starts, ends) int64[B], inclusive; empty iff start > end.
     """
@@ -73,7 +76,12 @@ def search_ranges_t(
             d = dev.dense[qt[L - 1 - j]]
             all_dense &= d >= 0
             addr += d.clamp_min(0) * base**j
-        pair = kernels.window_read(dev.kmer_flat, (addr << 1) | 1, 2).to(torch.int64) & _FULL
+        if dev.wide:
+            # Four int32 words per entry: [end high, end low, start high, start low].
+            words = kernels.window_read(dev.kmer_flat, (addr << 2) | 3, 4)
+            pair = torch.stack([join_words(words[:, :2]), join_words(words[:, 2:])], dim=1)
+        else:
+            pair = kernels.window_read(dev.kmer_flat, (addr << 1) | 1, 2).to(torch.int64) & _FULL
         starts = torch.where(all_dense, pair[:, 1], starts)
         ends = torch.where(all_dense, pair[:, 0], ends)
         steps_done = torch.where(all_dense, k, steps_done)
@@ -82,7 +90,7 @@ def search_ranges_t(
     lower = k if (seeded_floor and seeded) else 1
     for i in range(lower, upper):
         active = (i >= steps_done) & (i < qlens) & (starts <= ends)
-        if not seeded_floor and not bool(active.any()):
+        if skip_idle and not seeded_floor and not bool(active.any()):
             continue
         new_starts, new_ends = update_range(dev, starts, ends, qt[L - 1 - i])
         starts = torch.where(active, new_starts, starts)
@@ -106,7 +114,9 @@ def counts_from_ranges(starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor
 
 
 def count_batch_kernel_t(
-    dev: FmDeviceIndex, qt, qlens, *, no_sentinel: bool = False, seeded_floor: bool = False
+    dev: FmDeviceIndex, qt, qlens, *, no_sentinel: bool = False, seeded_floor: bool = False, skip_idle: bool = True
 ) -> torch.Tensor:
-    starts, ends = search_ranges_t(dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor)
+    starts, ends = search_ranges_t(
+        dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor, skip_idle=skip_idle
+    )
     return counts_from_ranges(starts, ends)

@@ -20,7 +20,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    either end).  Each path's
    report (phases 6, 9 and 12) also holds every kernel call the path made
    on its first batch (and the k-mer build's full chunk) against the plain
-   version on the same inputs.
+   version on the same inputs.  Then the 64-bit engine's variants
+   (occ_pair_wide, backstep_wide, marked_walk_wide at marks 4 and 32,
+   sampled_walk_wide flat and range-fed at SA ratios 8 and 12) against
+   their plain versions on synthetic wide rows: nucleotide over 2**24 +
+   4096 blocks (2.7 GB; positions and rows past 2**32), amino over 2**20
+   blocks; group bases, prefix sums and SA values past 2**32, block edges
+   and the last row among the requests.
 4. chr1 path: a chr1-scale index (250 Mbp of seeded random ACGT, k-mer seed
    length 13, mark ratio 1, SA ratio 8) built by the port's builder,
    shipped to the card, then 4 batches of 524,288 30 bp reads drawn from
@@ -108,6 +114,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the chr1 engine, the chr20 engine in both regimes and the mark-less
    engine, over the path's pre-encoded batches, each beside the rate from
    the wire (each measured before its engine's release).
+17. Wide GRCh38-shaped path (run right after phase 12, while phase 10's
+   engine lives): phase 10's host index shipped in the 64-bit layout
+   (FmQueryEngine(wide=True): the classic path, occ_pair_wide rank steps,
+   the k-mer seed as window_read k = 4 over the int64 table's words,
+   marked_walk_wide) serving phase 10's batches with the counts set to 0
+   just before: phase 10's answers exactly.  Its report: queries/s, the
+   time split, every recorded call against its plain version, and each
+   wide kernel's full-batch calls timed beside their bound, their plain
+   version and their narrow twin on phase 10's engine (same requests, same
+   answers); backstep_wide as one visit over the walk's rows.  Then the
+   facade on the wide index (FmIndex(wide=True)), counts set to 0 just
+   before: backstep of 16 rows and update_range_with_symbol along 4 reads'
+   backward search (backstep_wide, occ_pair_wide) equal the plain versions
+   on phase 10's tables, each search ending at the read's count.
+18. Wide mark-less path (run right after phase 15): the .awry-loaded index
+   of phase 14 in the 64-bit layout (sampled_walk_ranges_wide), phase 14's
+   answers exactly; the report of phase 17 against phase 14's engine.
+19. Federation, the pan-genome shape (bench.py:139-141: 40 records, k = 11,
+   mark 32, SA ratio 8, max_query_len 32, 30 bp reads, batches of 524,288,
+   cap 2, 4 partitions), cut from 10.3 Gbp to 256 Mbp (40 records of 6.4
+   Mbp of seeded random ACGT; a partition cap of 10 records): built with
+   num_workers=1 (timed), 2 batches of drawn reads and a batch of every
+   read starting within 29 symbols before a record delimiter or a
+   partition boundary, through PartitionedFmIndex.count_locate_arrays with
+   the counts set to 0 just before.  Every hit spells its query, every
+   drawn read is found at its own (record, local), every boundary read at
+   its own position exactly once, 64 counts equal a naive scan, and
+   count_batch of 4096 reads equals count_locate_arrays' counts.  Its
+   report: queries/s, and each partition's marked_walk call of the first
+   batch (mark 32) against its plain version, timed beside its bound, with
+   its walk lengths (p50, p99, max).
 
 Before each report's first timed site the engine's warmup() runs and the
 card's clocks are sampled (nvidia-smi), and again beside every timed site.
@@ -194,9 +231,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > 2x the 50 MB L2
 KERNELS = ("window_read", "occ_pair", "backstep", "occ", "marked_walk", "sampled_walk")
+# The 64-bit engine's variants (texts of 2**32 symbols and more), each its
+# narrow twin's template instantiated over the group bases and 64-bit values.
+WIDE_KERNELS = ("occ_pair_wide", "backstep_wide", "marked_walk_wide", "sampled_walk_wide")
+ALL_KERNELS = KERNELS + WIDE_KERNELS
 SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS} | {
     "occ": "awry_tpu_torch/csrc/occ_pair.cu", "marked_walk": "awry_tpu_torch/csrc/backstep.cu",
-    "sampled_walk": "awry_tpu_torch/csrc/backstep.cu",
+    "sampled_walk": "awry_tpu_torch/csrc/backstep.cu", "occ_pair_wide": "awry_tpu_torch/csrc/occ_pair.cu",
+    "backstep_wide": "awry_tpu_torch/csrc/backstep.cu", "marked_walk_wide": "awry_tpu_torch/csrc/backstep.cu",
+    "sampled_walk_wide": "awry_tpu_torch/csrc/backstep.cu",
 }
 REPLACES = {
     "window_read": "awry_tpu/ops/sweep.py:1036",  # _anchored_text_kernel
@@ -205,13 +248,21 @@ REPLACES = {
     "occ": "awry_tpu/ops/sweep.py:1108",  # _occ_kernel_anchored (and :291)
     "marked_walk": "awry_tpu/ops/sweep.py:1123",  # _backstep_kernel_anchored through marked_walk_sweep (:883)
     "sampled_walk": "awry_tpu/ops/locate.py:99",  # _row_sampled_walk: a while_loop of backstep gathers
+    # The 64-bit variants replace the same kernels at 64 bits (the reference's
+    # 64-bit engine, awry_tpu/ops/wide.py, runs them as plain gathers).
+    "occ_pair_wide": "awry_tpu/ops/sweep.py:1084",
+    "backstep_wide": "awry_tpu/ops/sweep.py:1123",
+    "marked_walk_wide": "awry_tpu/ops/sweep.py:1123",
+    "sampled_walk_wide": "awry_tpu/ops/locate.py:99",
 }
 # The wrappers whose calls a path's first batch records: every kernel's, and
 # sampled_walk_ranges (the range-fed entry of sampled_walk, counted under it).
-RECORDED = (*KERNELS, "sampled_walk_ranges")
+RECORDED = (*ALL_KERNELS, "sampled_walk_ranges", "sampled_walk_ranges_wide")
 # Arguments of each wrapper that carry per-request data (recorded as copies).
 REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2), "marked_walk": (1,),
-                "sampled_walk": (1,), "sampled_walk_ranges": (1, 2)}
+                "sampled_walk": (1,), "sampled_walk_ranges": (1, 2), "occ_pair_wide": (2, 3, 4),
+                "backstep_wide": (2,), "marked_walk_wide": (2,), "sampled_walk_wide": (2,),
+                "sampled_walk_ranges_wide": (2, 3)}
 WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for marked_walk
 
 # Phase 15: an E. coli-sized text (bench.py ecoli_4.6Mbp_dna) in two records,
@@ -248,11 +299,11 @@ def clocks() -> dict:
 
 
 def launch_counts() -> dict:
-    return {name: getattr(kernels, name).launches for name in KERNELS}
+    return {name: getattr(kernels, name).launches for name in ALL_KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
+    for name in ALL_KERNELS:
         getattr(kernels, name).launches = 0
 
 
@@ -405,6 +456,88 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
             }
             del sa
         del blocks, pos_a, pos_b, serving_b, serving, sym, pos, osym, runs, sorted_pos, rows, got, want
+    return out
+
+
+def wide_tables(device, gen, alphabet, nb: int, shift: int, walkable: bool = False):
+    """Synthetic wide fused rows on the card for phase 3: random planes and
+    mark words, relative milestones and mark milestones below 2**24, group
+    bases and prefix sums past 2**32 (kernels.WideBases).  ``walkable``:
+    relative milestones 0 and bases that send an LF step from group g into
+    the last block of group g - 1, so that every sampled walk ends (within
+    twice the groups' count) however the random planes read."""
+    v, c = alphabet.num_planes, alphabet.cardinality
+    blocks = random_words((nb, fused_row_words(alphabet)), device, gen)
+    blocks[:, v * 8 : v * 8 + c] = 0 if walkable else torch.randint(
+        0, 2**24, (nb, c), device=device, generator=gen, dtype=torch.int32)
+    blocks[:, v * 8 + c + 8] = torch.randint(0, 2**24, (nb,), device=device, generator=gen, dtype=torch.int32)
+    groups = -(-nb // (1 << shift))
+    prefix = torch.randint(2**32, 2**34, (c + 1,), device=device, generator=gen).sort().values
+    if walkable:
+        g = torch.arange(groups, device=device)[:, None]
+        ms_base = g * (256 << shift) - 255 - prefix[None, :c]
+    else:
+        ms_base = torch.randint(2**32, 2**40, (groups, c), device=device, generator=gen)
+    marks = torch.randint(0, 2**36, (groups,), device=device, generator=gen)
+    codes = torch.from_numpy(index_to_code_table(alphabet).astype(np.int32)).to(device)
+    c2i = torch.from_numpy(code_to_index_table(alphabet).astype(np.int32)).to(device)
+    return blocks, kernels.WideBases(ms_base.contiguous(), marks, shift), prefix, codes, c2i
+
+
+def wide_kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
+    """Each wide variant against its plain version on the card, exactly, on
+    synthetic tables: nucleotide rows over 2**24 + 4096 blocks (2.7 GB:
+    positions, rows and walks past 2**32), amino rows over 2**20 blocks in
+    groups of 2**8; bases, prefix sums and SA values past 2**32; 524,288
+    requests with rows 0, block edges, the last row, 2**32 +- 1 and rows past
+    either end; marked_walk_wide at marks 4 and 32, sampled_walk_wide (flat
+    and range-fed, cap 8) at SA ratios 8 and 12 (the 64-bit quotient)."""
+    out = {}
+    for alphabet, nb, shift in ((Alphabet.NUCLEOTIDE, 2**24 + 4096, 16), (Alphabet.AMINO, 2**20, 8)):
+        name = alphabet.name.lower()
+        v, c = alphabet.num_planes, alphabet.cardinality
+        top = nb * 256
+        bwt_len = top - 3
+        edges = torch.tensor([e for e in (0, 255, 256, 2**32 - 1, 2**32, 2**32 + 255, bwt_len - 1, top - 1, top + 7, -3)
+                              if e < top + 8], device=device)
+        pos = torch.cat([edges, torch.randint(0, top, (BATCH - edges.shape[0],), device=device, generator=gen)])
+        pos_b = (pos + torch.randint(0, 600, pos.shape, device=device, generator=gen)).clamp_max(top - 1)
+        sym = torch.randint(0, c, pos.shape, dtype=torch.int32, device=device, generator=gen)
+        blocks, bases, prefix, codes, c2i = wide_tables(device, gen, alphabet, nb, shift)
+        meta = {"requests": BATCH, "rows": nb, "group_shift": shift}
+
+        def check(key, got, want, **extra):
+            err = result_err(got, want)
+            if err != 0:
+                raise AssertionError(f"{key} disagrees with its plain version (max abs err {err})")
+            top_value = max(int(g.max()) for g in (got if isinstance(got, tuple) else (got,)))
+            out[key] = meta | extra | {"max_abs_err": err, "largest_value": top_value}
+
+        check(f"occ_pair_wide:{name}", kernels.occ_pair_wide(blocks, bases, pos, pos_b, sym, codes, v),
+              kernels.occ_pair_wide_plain(blocks, bases, pos, pos_b, sym, codes, v))
+        args = (prefix, codes, c2i, v, v * 8 + c, alphabet.ambiguity_idx)
+        check(f"backstep_wide:{name}", kernels.backstep_wide(blocks, bases, pos, *args),
+              kernels.backstep_wide_plain(blocks, bases, pos, *args))
+        for mark in (4, 32):
+            sa = torch.randint(0, bwt_len, (-(-bwt_len // mark),), device=device, generator=gen)
+            walk = (blocks, bases, pos, *args, mark, sa, bwt_len)
+            check(f"marked_walk_wide:{name}:mark{mark}", kernels.marked_walk_wide(*walk),
+                  kernels.marked_walk_wide_plain(*walk), sa_values=sa.shape[0])
+            del sa, walk
+        del blocks, bases
+        blocks, bases, prefix, codes, c2i = wide_tables(device, gen, alphabet, nb, shift, walkable=True)
+        counts = torch.randint(0, 12, pos.shape, device=device, generator=gen)
+        for sa_ratio in (8, 12):
+            sa = torch.randint(0, bwt_len, (-(-bwt_len // sa_ratio),), device=device, generator=gen)
+            tail = (prefix, codes, c2i, v, alphabet.ambiguity_idx, sa_ratio, sa, bwt_len)
+            check(f"sampled_walk_wide:{name}:sa{sa_ratio}", kernels.sampled_walk_wide(blocks, bases, pos, *tail),
+                  kernels.sampled_walk_wide_plain(blocks, bases, pos, *tail), sa_values=sa.shape[0])
+            check(f"sampled_walk_wide:{name}:ranges:sa{sa_ratio}",
+                  kernels.sampled_walk_ranges_wide(blocks, bases, pos, counts, 8, *tail),
+                  kernels.sampled_walk_ranges_wide_plain(blocks, bases, pos, counts, 8, *tail), cap=8)
+            del sa, tail
+        del blocks, bases, pos, pos_b, sym, counts
+        torch.cuda.empty_cache()
     return out
 
 
@@ -571,8 +704,7 @@ def grch38_path(device: torch.device, rng: np.random.Generator) -> dict:
     log(f"host index build seconds: {build_s:.3f}")
     if not np.array_equal(index.seq_starts, rec_starts):
         raise AssertionError("record starts of the index disagree with the joined text")
-    engine, ship_s = ship(index, device)
-    del index
+    engine, ship_s = ship(index, device)  # the host index stays for phase 17's wide engine
 
     # Per batch: the reads' symbols [n, G_QLEN] and the required hits as
     # (query, global position) pairs.
@@ -604,7 +736,7 @@ def grch38_path(device: torch.device, rng: np.random.Generator) -> dict:
     run.update({
         "text_np": text_np, "text": text, "engine": engine, "build_s": build_s, "ship_s": ship_s,
         "rec_starts": rec_starts, "rec_lengths": rec_lengths, "repeats": repeats, "batches": batches,
-        "qsyms": qsyms, "required": required, "qlen": G_QLEN,
+        "qsyms": qsyms, "required": required, "qlen": G_QLEN, "index": index,
         "repeat_lanes": [256 + 64 * i + np.arange(64) for i in range(len(repeats))],
     })
     return run
@@ -913,14 +1045,15 @@ def backstep_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, 
 
 
 def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
-                      sampled_sa, bwt_len) -> tuple[float, float]:
+                      sampled_sa, bwt_len, sa_word_bytes: int = 4) -> tuple[float, float]:
     """(bytes, ops) of the walks these rows take: each distinct 32 B sector
     the visits touch (a stepping visit: the sector of the row's mark word,
     the V plane sectors and the stepped symbol's milestone sector; a final
     visit: the sectors of the mark words up to the row's word and of the
     mark milestone), each distinct sector of the marked SA read, and 16 B
     per lane (the row in, the text position out); ops: backstep's per
-    stepping visit, the mark rank and 4 more per lane."""
+    stepping visit, the mark rank and 4 more per lane.  ``sa_word_bytes``: 8
+    for a wide index's int64 SA values."""
     spr = blocks.shape[1] // 8
     visit_args = (prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
     sectors, sa_sectors, stepping_visits = [], [], 0
@@ -943,7 +1076,7 @@ def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offse
         ]
         _, packed = kernels.backstep_plain(blocks, pos[final], *visit_args)
         rank = ((packed.to(torch.int64) & 0xFFFFFFFF) >> 1).clamp_max(sampled_sa.shape[0] - 1)
-        sa_sectors.append(rank >> 3)
+        sa_sectors.append((rank * sa_word_bytes) >> 5)
         stepping_visits += int(step.sum())
         pos = kernels.backstep_plain(blocks, pos[step], *visit_args)[0]
         if not pos.numel():
@@ -955,7 +1088,7 @@ def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offse
 
 
 def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
-                       bwt_len) -> tuple[float, float, dict]:
+                       bwt_len, sa_word_bytes: int = 4) -> tuple[float, float, dict]:
     """(bytes, ops, walk lengths) of the walks these rows take: each distinct
     32 B sector their stepping visits read (the V plane sectors and the
     stepped symbol's milestone sector), each distinct sector of the sampled
@@ -964,7 +1097,8 @@ def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity
     + 2) and the modulo's 4, per lane the final read and add, 4.  The walk
     lengths: steps of the rows other than row 0 (the lanes a query range
     fills; the path's idle lanes walk row 0, which is sampled), and the
-    first row whose walk is the longest."""
+    first row whose walk is the longest.  ``sa_word_bytes``: 8 for a wide
+    index's int64 SA values."""
     mark_offset = nplanes * 8 + codes.shape[0]  # the LF does not read the mark words
     pos = rows.clamp(0, bwt_len - 1)
     steps = torch.zeros_like(pos)
@@ -983,7 +1117,7 @@ def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity
         steps[live] += 1
         live = live[pos[live] % sa_ratio != 0]
     distinct = torch.unique(torch.cat(sectors)).numel() if sectors else 0
-    distinct += torch.unique((pos // sa_ratio) >> 3).numel()
+    distinct += torch.unique(((pos // sa_ratio) * sa_word_bytes) >> 5).numel()
     n = rows.shape[0]
     stepping = int(steps.sum())
     ops = stepping * (nplanes * 3 + nplanes * 16 + 8 * 3 + 2 + 4) + n * 4
@@ -996,12 +1130,12 @@ def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity
     return float(distinct * 32 + n * 16), float(ops), lengths
 
 
-def sampled_walk_ranges_bound(blocks, starts, counts, cap, *walk) -> tuple[float, float, dict]:
+def sampled_walk_ranges_bound(blocks, starts, counts, cap, *walk, sa_word_bytes: int = 4) -> tuple[float, float, dict]:
     """sampled_walk_bound of the padded rows the ranges give (kernels.slot_rows),
     its I/O counted as the range-fed entry moves it: starts and counts in (16
     B per query), the int64[B, cap] positions out."""
     rows = kernels.slot_rows(starts, counts, cap).reshape(-1)
-    nbytes, ops, lengths = sampled_walk_bound(blocks, rows, *walk)
+    nbytes, ops, lengths = sampled_walk_bound(blocks, rows, *walk, sa_word_bytes=sa_word_bytes)
     return nbytes - rows.shape[0] * 16 + starts.shape[0] * 16 + rows.shape[0] * 8, ops, lengths
 
 
@@ -1174,8 +1308,8 @@ def report(name: str, run: dict, device: torch.device) -> dict:
         f"versions: {json.dumps(checked)}")
     for row in rows:
         log("  " + json.dumps(row))
-    build_launches = run.get("build_launches", dict.fromkeys(KERNELS, 0))
-    launches = {kind: run["launches"][kind] + build_launches[kind] for kind in KERNELS}
+    build_launches = run.get("build_launches", dict.fromkeys(ALL_KERNELS, 0))
+    launches = {kind: run["launches"][kind] + build_launches[kind] for kind in ALL_KERNELS}
     for kind, agg in per_kernel.items():
         n = run["launches"][kind]
         batches = len(run["batches"])
@@ -1475,6 +1609,355 @@ def facade_and_cli(run: dict, mrun: dict, npz: str, device: torch.device, tmp: s
     return out
 
 
+# -- phases 17-19: the 64-bit engine at full width, and the federation ----------
+
+
+def wide_serve(name: str, engine: FmQueryEngine, ship_s: float, batches: list, results: list,
+               device: torch.device) -> dict:
+    """Serve ``batches`` through an engine shipped in the 64-bit layout
+    (wide=True; serve(): the launch counts set to 0 just before and read
+    just after); every answer must equal ``results``, the narrow engine's on
+    the same batches."""
+    if not engine.device_index.wide or engine._verify_enabled:
+        raise AssertionError("wide=True did not ship the 64-bit layout for the classic path")
+    run = serve(engine, batches, device)
+    for b, (x, y) in enumerate(zip(results, run["results"], strict=True)):
+        if not same_answers(x, y):
+            raise AssertionError(f"batch {b}: the wide engine answers the {name} path differently")
+    run.update({"engine": engine, "ship_s": ship_s, "batches": batches})
+    return run
+
+
+def wide_facade(fm, run: dict, narrow, device: torch.device, rng: np.random.Generator) -> dict:
+    """Phase 17's facade, launch counts from 0: FmIndex(wide=True).backstep
+    on 16 rows and update_range_with_symbol along 4 reads' backward search
+    (backstep_wide and occ_pair_wide) equal backstep_plain and occ_pair_plain
+    on the narrow index ``narrow`` of the same host index, and each search
+    ends at the read's count."""
+    reset_launch_counts()
+    rows = [0, 1, narrow.bwt_len - 1, *rng.integers(0, narrow.bwt_len, size=13).tolist()]
+    got = [fm.backstep(row) for row in rows]
+    counts = run["results"][0][0]
+    picks = rng.integers(0, len(run["batches"][0]), size=4).tolist()
+    searches = []
+    for i in picks:
+        q = run["batches"][0][i]
+        r = fm.initial_search_range(Symbol.new_ascii(fm.alphabet(), chr(q[-1])))
+        steps = []
+        for ch in reversed(q[:-1]):
+            sym = Symbol.new_ascii(fm.alphabet(), chr(ch))
+            steps.append((r, sym))
+            r = fm.update_range_with_symbol(r, sym)
+        searches.append((i, steps, r))
+    torch.cuda.synchronize(device)
+    launches = launch_counts()
+    walk = (narrow.prefix_sums, narrow.codes, narrow.c2i, narrow.num_planes, narrow.mark_offset,
+            narrow.alphabet.ambiguity_idx)
+    want = kernels.backstep_plain(narrow.blocks, torch.tensor(rows, device=device), *walk)[0].tolist()
+    if got != want:
+        raise AssertionError("FmIndex(wide=True).backstep differs from backstep_plain on the narrow index")
+    for i, steps, final in searches:
+        for (r, sym), nxt in zip(steps, [s for s, _ in steps[1:]] + [final]):
+            a, b = kernels.occ_pair_plain(narrow.blocks, torch.tensor([r.start_ptr - 1], device=device),
+                                          torch.tensor([r.end_ptr], device=device),
+                                          torch.tensor([sym.index()], dtype=torch.int32, device=device),
+                                          narrow.codes, narrow.num_planes)
+            c = int(narrow.prefix_sums[sym.index()])
+            if (nxt.start_ptr, nxt.end_ptr) != (c + (int(a[0]) & 0xFFFFFFFF), c + (int(b[0]) & 0xFFFFFFFF) - 1):
+                raise AssertionError("update_range_with_symbol on the wide index differs from occ_pair_plain")
+        if final.len() != int(counts[i]):
+            raise AssertionError("a backward search through the wide facade disagrees with the count")
+    checked = {"backstep_wide": {"calls": len(rows), "max_abs_err": 0},
+               "occ_pair_wide": {"calls": sum(len(st) for _, st, _ in searches), "max_abs_err": 0}}
+    return {"launches": launches, "checked_vs_plain": checked, "sites": []}
+
+
+def narrow_twin(kind: str, args: tuple, narrow) -> tuple[str, tuple]:
+    """The narrow kernel's call on a wide call's requests, over the narrow
+    device index ``narrow`` of the same host index."""
+    amb = narrow.alphabet.ambiguity_idx
+    lf = (narrow.prefix_sums, narrow.codes, narrow.c2i, narrow.num_planes)
+    if kind == "occ_pair_wide":
+        return "occ_pair", (narrow.blocks, *args[2:5], narrow.codes, narrow.num_planes)
+    if kind == "backstep_wide":
+        return "backstep", (narrow.blocks, args[2], *lf, narrow.mark_offset, amb)
+    if kind == "marked_walk_wide":
+        return "marked_walk", (narrow.blocks, args[2], *lf, narrow.mark_offset, amb, narrow.mark_ratio,
+                               narrow.text_sampled_sa, narrow.bwt_len)
+    return "sampled_walk_ranges", (narrow.blocks, *args[2:5], *lf, amb, narrow.sa_ratio, narrow.sampled_sa,
+                                   narrow.bwt_len)
+
+
+def same_values(wide_out, narrow_out) -> bool:
+    """A wide kernel's int64 outputs equal its narrow twin's (int32 outputs
+    as the uint32 values they carry, 31 bits for backstep's packed rank)."""
+    wide_out = wide_out if isinstance(wide_out, tuple) else (wide_out,)
+    narrow_out = narrow_out if isinstance(narrow_out, tuple) else (narrow_out,)
+    return all(
+        torch.equal(w, n) if n.dtype == torch.int64 else torch.equal(w & 0xFFFFFFFF, n.to(torch.int64) & 0xFFFFFFFF)
+        for w, n in zip(wide_out, narrow_out, strict=True)
+    )
+
+
+def wide_bound(kind: str, twin_args: tuple) -> tuple[float, float, dict]:
+    """(bytes, ops, walk lengths) of a wide call from its narrow twin's
+    inputs: the twin's bound, with 8-byte SA values and the wider outputs
+    (occ_pair: 8 B more per request, backstep: 4 B)."""
+    if kind == "occ_pair_wide":
+        nbytes, ops = occ_pair_bound(*twin_args)
+        return nbytes + twin_args[1].shape[0] * 8, ops, {}
+    if kind == "backstep_wide":
+        nbytes, ops = backstep_bound(*twin_args)
+        return nbytes + twin_args[1].shape[0] * 4, ops, {}
+    if kind == "marked_walk_wide":
+        nbytes, ops = marked_walk_bound(*twin_args, sa_word_bytes=8)
+        return nbytes, ops, marked_walk_lengths(*twin_args)
+    nbytes, ops, lengths = sampled_walk_ranges_bound(*twin_args, sa_word_bytes=8)
+    return nbytes, ops, lengths
+
+
+def marked_walk_lengths(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
+                        sampled_sa, bwt_len) -> dict:
+    """Steps of each row's marked walk (at most mark_ratio - 1), by visits
+    of backstep_plain: p50, p99, max and the mean."""
+    pos = rows.clone()
+    steps = torch.zeros_like(rows)
+    live = torch.arange(rows.shape[0], device=rows.device)
+    for _ in range(mark_ratio - 1):
+        stepped, packed = kernels.backstep_plain(blocks, pos[live], prefix_sums, codes, c2i, nplanes, mark_offset,
+                                                 ambiguity_idx)
+        going = (packed & 1) == 0
+        live = live[going]
+        pos[live] = stepped[going]
+        steps[live] += 1
+        if not live.numel():
+            break
+    st = steps.double()
+    out = {"rows": int(rows.shape[0]), "mean": float(st.mean())}
+    for q in (0.5, 0.99):
+        out[f"p{q * 100:g}"] = float(torch.quantile(st[: 1 << 24], q))
+    out["max"] = int(steps.max())
+    return out
+
+
+def wide_report(name: str, run: dict, narrow, device: torch.device) -> dict:
+    """Phases 17-18's report: end-to-end rate, the time split, every
+    recorded call of the first batch against its plain version and each
+    wide call against its narrow twin (the same answers), and per wide
+    kernel its full-batch calls timed (L2 flushed) beside their bound, the
+    plain version and the narrow twin on the narrow index's rows."""
+    engine = run["engine"]
+    batch = len(run["batches"][0])
+    qps = run["queries"] / run["serve_s"]
+    log(f"  {name}: {qps:.1f} queries/s end to end, launches {json.dumps(run['launches'])}")
+    split = time_split(run, device)
+    log(f"  {name} time split: {json.dumps(split)}")
+    flush = make_flush(device)
+    engine.warmup(batch_sizes=(batch,), query_lens=(run.get("qlen", QLEN),))
+    # backstep_wide as one visit over each full walk's rows (the facade's
+    # call on a wide index), as the narrow report times backstep.
+    calls = run["calls"] + [("backstep_wide", a[:9]) for kind, a in run["calls"]
+                            if kind == "marked_walk_wide" and a[2].shape[0] >= batch]
+    checked: dict = {}
+    per_kernel: dict = {}
+    rows = []
+    for kind, args in calls:
+        fn, plain = getattr(kernels, kind), getattr(kernels, f"{kind}_plain")
+        got = fn(*args)
+        err = result_err(got, plain(*args))
+        if err != 0:
+            raise AssertionError(f"{kind} disagrees with its plain version on a {name} call: max abs err {err}")
+        key = kind.replace("_ranges", "")  # the range-fed entry counts under sampled_walk_wide
+        c = checked.setdefault(key, {"calls": 0, "max_abs_err": 0})
+        c["calls"] += 1
+        if kind == "window_read" or kind == "sampled_walk_wide" or args[2].shape[0] < batch:
+            continue  # the seed read (narrow), an over-cap expansion or a re-dispatch: checked, not timed
+        twin_kind, twin_args = narrow_twin(kind, args, narrow)
+        twin = getattr(kernels, twin_kind)
+        if not same_values(got, twin(*twin_args)):
+            raise AssertionError(f"{kind} and its narrow twin {twin_kind} disagree on a {name} call")
+        ms = time_ms(lambda: fn(*args), device, 20, flush)
+        twin_ms = time_ms(lambda: twin(*twin_args), device, 20, flush)
+        plain_ms = time_ms(lambda: plain(*args), device, 3, flush)
+        nbytes, ops, lengths = wide_bound(kind, twin_args)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        agg = per_kernel.setdefault(key, {"calls_timed": 0, "ms": 0.0, "narrow_twin_ms": 0.0, "plain_ms": 0.0,
+                                          "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "library_ms": None})
+        agg["calls_timed"] += 1
+        for k, v in (("ms", ms), ("narrow_twin_ms", twin_ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                     ("bytes", nbytes), ("ops", ops)):
+            agg[k] += v
+        row = {"kernel": key, "site": f"{kind} call {agg['calls_timed']}", "requests": int(args[2].shape[0]),
+               "ms": ms, "narrow_twin_ms": twin_ms, "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
+               "ops": ops, "max_abs_err": err}
+        if lengths:
+            row["walk_steps"] = lengths
+        rows.append(row)
+    for row in rows:
+        if row["kernel"] != "occ_pair_wide":
+            log("  " + json.dumps(row))
+    for key, agg in per_kernel.items():
+        log(f"  {name} {key}: {run['launches'].get(key, 0)} launches over {len(run['batches'])} batches; "
+            f"{json.dumps(agg)}")
+    log(f"  {name} recorded calls equal to their plain versions: {json.dumps(checked)}")
+    return {"ship_s": run["ship_s"], "serve_s": run["serve_s"], "queries": run["queries"], "queries_per_s": qps,
+            "launches": run["launches"], "time_split": split, "sites": rows, "per_kernel": per_kernel,
+            "checked_vs_plain": checked}
+
+
+PAN_RECORDS = 40  # bench.py:139-141, pangenome_10Gbp_dna: 40 records, k = 11, mark 32, 30 bp reads, cap 2
+PAN_RECORD_SYMBOLS = 6_400_000  # cut from 10.3 Gbp / 40: 256 Mbp in all
+PAN_PER_PARTITION = 10  # the partition cap fits 10 records: 4 partitions
+PAN_KMER_LEN = 11
+PAN_MARK = 32
+PAN_MAX_QUERY_LEN = 32
+PAN_CAP = 2
+PAN_COUNT_BATCH = 4096
+
+
+def federation_path(device: torch.device, rng: np.random.Generator) -> dict:
+    """Phase 19: the pan-genome shape (bench.py:139-141) cut to 256 Mbp: 40
+    records of 6.4 Mbp of seeded random ACGT joined by the N delimiter, 4
+    partitions of 10 records (k = 11, mark 32, SA ratio 8, max_query_len 32),
+    built serially (num_workers=1, the host k-mer build); 2 batches of
+    524,288 30 bp reads drawn from record interiors and a batch of every
+    read starting within 29 symbols before a record delimiter or a partition
+    boundary, served through count_locate_arrays (cap 2) with the counts
+    set to 0 just before and read just after."""
+    from awry_tpu_torch.parallel import PartitionedFmIndex
+
+    n = PAN_RECORDS * (PAN_RECORD_SYMBOLS + 1) - 1
+    rec_starts = np.arange(PAN_RECORDS, dtype=np.int64) * (PAN_RECORD_SYMBOLS + 1)
+    text_np = LETTERS[rng.integers(0, 4, size=n, dtype=np.uint8)]
+    text_np[rec_starts[1:] - 1] = ord("N")
+    text = text_np.tobytes()
+    records = [(f"genome_{i}", text[s : s + PAN_RECORD_SYMBOLS]) for i, s in enumerate(rec_starts.tolist())]
+    cap_symbols = PAN_PER_PARTITION * (PAN_RECORD_SYMBOLS + 1) - 1 + PAN_RECORD_SYMBOLS // 2
+    args = FmBuildArgs(lookup_table_kmer_len=PAN_KMER_LEN, locate_mark_ratio=PAN_MARK, suffix_array_compression_ratio=8)
+    t0 = time.perf_counter()
+    fed = PartitionedFmIndex.build_from_records(records, args, max_partition_symbols=cap_symbols,
+                                                max_query_len=PAN_MAX_QUERY_LEN, num_workers=1, device=device)
+    build_s = time.perf_counter() - t0
+    del records
+    if len(fed.partitions) != PAN_RECORDS // PAN_PER_PARTITION or not np.array_equal(fed.seq_starts, rec_starts):
+        raise AssertionError(f"{len(fed.partitions)} partitions, or record starts that disagree with the text")
+    log(f"federation build seconds: {build_s:.3f}; partitions (global start, owned length): "
+        f"{[(p.global_start, p.owned_len) for p in fed.partitions]}")
+    t0 = time.perf_counter()
+    engines = [fed._part_engine(p) for p in fed.partitions]
+    torch.cuda.synchronize(device)
+    ship_s = time.perf_counter() - t0
+    if any(e._verify_slots or not e._verify_enabled or e.device_index.mark_ratio != PAN_MARK for e in engines):
+        raise AssertionError("a partition is not served by the switch-step verify path at mark 32")
+
+    ar = np.arange(QLEN)
+    starts = []
+    for _ in range(2):
+        r = rng.integers(0, PAN_RECORDS, size=BATCH)
+        starts.append(rec_starts[r] + rng.integers(0, PAN_RECORD_SYMBOLS - QLEN + 1, size=BATCH))
+    delims = rec_starts[1:] - 1
+    bounds = np.array([p.global_start for p in fed.partitions[1:]], dtype=np.int64)
+    edge = np.unique(np.concatenate([(e[:, None] - np.arange(1, QLEN)[None, :]).reshape(-1) for e in (delims, bounds)]))
+    starts.append(edge)
+    batches = [[text[s : s + QLEN] for s in st.tolist()] for st in starts]
+
+    calls: list = []
+    with recording_kernel_inputs(calls):
+        fed.count_locate_arrays(batches[0], cap=PAN_CAP)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [fed.count_locate_arrays(b, cap=PAN_CAP) for b in batches[:2]]
+    torch.cuda.synchronize(device)
+    serve_s = time.perf_counter() - t0
+    results.append(fed.count_locate_arrays(batches[2], cap=PAN_CAP))
+    torch.cuda.synchronize(device)
+    launches = launch_counts()
+    return {"fed": fed, "text_np": text_np, "text": text, "rec_starts": rec_starts, "starts": starts,
+            "batches": batches, "results": results, "calls": calls, "build_s": build_s, "ship_s": ship_s,
+            "serve_s": serve_s, "launches": launches, "queries": 2 * BATCH, "edge_reads": int(edge.shape[0])}
+
+
+def check_federation(run: dict, rng: np.random.Generator) -> dict:
+    """Every hit spells its query; every drawn read is found at its own
+    (record, local); every boundary read is reported at its own position
+    exactly once; 64 counts (48 drawn, 16 boundary reads) equal a naive scan
+    of the corpus; count_batch of 4096 reads equals count_locate_arrays'
+    counts."""
+    text_np, rec_starts, total = run["text_np"], run["rec_starts"], run["text_np"].shape[0]
+    ar = np.arange(QLEN)
+    hits = 0
+    for b, ((counts, seq_idx, local, offsets), st) in enumerate(zip(run["results"], run["starts"], strict=True)):
+        nq = st.shape[0]
+        shapes_ok = counts.shape[0] == nq and offsets[-1] == local.shape[0]
+        if not shapes_ok or not (np.diff(offsets) == counts.astype(np.int64)).all():
+            raise AssertionError(f"federation batch {b}: malformed result")
+        gpos = rec_starts[seq_idx] + local
+        if ((local < 0) | (gpos + QLEN > total)).any():
+            raise AssertionError(f"federation batch {b}: a hit outside the corpus")
+        qidx = np.repeat(np.arange(nq), counts.astype(np.int64))
+        if not (text_np[gpos[:, None] + ar] == text_np[st[qidx, None] + ar]).all():
+            raise AssertionError(f"federation batch {b}: a hit does not spell its query")
+        own = np.bincount(qidx[gpos == st[qidx]], minlength=nq)
+        if (own < 1).any():
+            raise AssertionError(f"federation batch {b}: a read was not found at its own (record, local)")
+        if b == 2 and (own != 1).any():
+            raise AssertionError("a boundary read was reported at its own position more than once")
+        hits += local.shape[0]
+    c0, ce = run["results"][0][0], run["results"][2][0]
+    picks = [(run["batches"][0][i], int(c0[i])) for i in rng.integers(0, BATCH, size=NUM_NAIVE - 16)]
+    picks += [(run["batches"][2][i], int(ce[i])) for i in rng.integers(0, ce.shape[0], size=16)]
+    for (q, c), want in zip(picks, naive_counts(run["text"], [q for q, _ in picks])):
+        if c != want:
+            raise AssertionError(f"federation count {c} != naive scan {want} for {q!r}")
+    n_edge = min(96, ce.shape[0])
+    queries = run["batches"][0][: PAN_COUNT_BATCH - n_edge] + run["batches"][2][:n_edge]
+    t0 = time.perf_counter()
+    counted = run["fed"].count_batch(queries)
+    count_batch_s = time.perf_counter() - t0
+    want = np.concatenate([c0[: PAN_COUNT_BATCH - n_edge], ce[:n_edge]])
+    if not np.array_equal(counted, want):
+        raise AssertionError("count_batch disagrees with count_locate_arrays' counts")
+    return {"hits_checked": hits, "naive_checked": len(picks), "boundary_reads": int(ce.shape[0]),
+            "count_batch_queries": len(queries), "count_batch_s": count_batch_s}
+
+
+def federation_report(run: dict, device: torch.device) -> dict:
+    """Phase 19's report: queries/s over the 2 drawn batches, and each
+    partition's full-batch marked_walk call of the first batch (mark 32)
+    against its plain version, timed (L2 flushed) beside its bound, with its
+    walk lengths."""
+    qps = run["queries"] / run["serve_s"]
+    flush = make_flush(device)
+    checked = {}
+    rows = []
+    for kind, args in run["calls"]:
+        err = result_err(getattr(kernels, kind)(*args), getattr(kernels, f"{kind}_plain")(*args))
+        if err != 0:
+            raise AssertionError(f"{kind} disagrees with its plain version on a federation call: max abs err {err}")
+        c = checked.setdefault(kind.removesuffix("_ranges"), {"calls": 0, "max_abs_err": 0})
+        c["calls"] += 1
+        if kind != "marked_walk" or args[1].shape[0] < BATCH:
+            continue
+        nbytes, ops = marked_walk_bound(*args)
+        rows.append({
+            "kernel": "marked_walk", "site": f"walk {len(rows) + 1} (mark {args[8]}, partition {len(rows)})",
+            "requests": int(args[1].shape[0]), "ms": time_ms(lambda: kernels.marked_walk(*args), device, 20, flush),
+            "plain_ms": time_ms(lambda: kernels.marked_walk_plain(*args), device, 3, flush),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "bytes": nbytes, "ops": ops,
+            "max_abs_err": err, "walk_steps": marked_walk_lengths(*args),
+        })
+    for row in rows:
+        log("  " + json.dumps(row))
+    agg = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
+    agg["library_ms"] = None
+    stats = [dict(p.engine.stats) for p in run["fed"].partitions]
+    log(f"  federation: {qps:.1f} queries/s end to end over {run['queries']} drawn reads; launches "
+        f"{json.dumps(run['launches'])}; engine stats per partition {json.dumps(stats)}")
+    return {"build_s": run["build_s"], "ship_s": run["ship_s"], "serve_s": run["serve_s"], "queries": run["queries"],
+            "queries_per_s": qps, "launches": run["launches"], "sites": rows, "per_kernel": {"marked_walk": agg},
+            "checked_vs_plain": checked, "stats": stats, "edge_reads": run["edge_reads"]}
+
+
 def require_launches(name: str, launches: dict, kinds) -> None:
     for kind in kinds:
         if launches[kind] <= 0:
@@ -1509,6 +1992,12 @@ def main() -> int:
     t0 = time.perf_counter()
     exact = kernels_vs_plain(device, gen)
     log(f"phase 3 kernels vs plain: exact on {sorted(exact)} ({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide_exact = wide_kernels_vs_plain(device, gen)
+    exact |= wide_exact
+    log(f"phase 3 wide kernels vs plain (positions, milestones and SA values past 2**32): "
+        f"{json.dumps(wide_exact)} ({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(args.seed)
@@ -1583,6 +2072,25 @@ def main() -> int:
     log("phase 12 GRCh38 report:")
     paths["grch38"] = report("grch38", run, device) | {"checks": checks}
     paths["grch38"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+
+    # Phase 17 runs while phase 10's engine lives: its tables give the
+    # narrow twins their rows; then the facade on the wide index.
+    t0 = time.perf_counter()
+    fm = FmIndex(run.pop("index"), device=device, wide=True)
+    torch.cuda.synchronize(device)
+    wrun = wide_serve("GRCh38-shaped", fm.engine, time.perf_counter() - t0, run["batches"], run["results"], device)
+    log(f"phase 17 wide GRCh38-shaped path: {wrun['queries']} queries in {wrun['serve_s']:.3f} s; launches "
+        f"{wrun['launches']}; phase 10's answers ({time.perf_counter() - t0:.3f} s with the ship)")
+    require_launches("wide GRCh38-shaped", wrun["launches"], ("window_read", "occ_pair_wide", "marked_walk_wide"))
+    if wrun["launches"]["occ_pair"] or wrun["launches"]["marked_walk"]:
+        raise AssertionError("the wide GRCh38-shaped path launched a narrow rank or walk kernel")
+    paths["grch38_wide"] = wide_report("grch38_wide", wrun, run["engine"].device_index, device)
+    t0 = time.perf_counter()
+    paths["grch38_wide_facade"] = wide_facade(fm, run, run["engine"].device_index, device, rng)
+    log(f"  wide facade: {json.dumps(paths['grch38_wide_facade'])} ({time.perf_counter() - t0:.3f} s)")
+    require_launches("wide facade", paths["grch38_wide_facade"]["launches"], ("backstep_wide", "occ_pair_wide"))
+    fm.engine.release()
+    del wrun, fm
     run["engine"].release()
     del run
     gc.collect()
@@ -1598,7 +2106,6 @@ def main() -> int:
 
         t0 = time.perf_counter()
         mrun = markless_path(c20, markless, files["awry"]["load_s"], device)
-        del markless
         log(f"phase 14 mark-less path: {mrun['queries']} queries in {mrun['serve_s']:.3f} s; launches "
             f"{mrun['launches']}; the same answers as phase 7 ({time.perf_counter() - t0:.3f} s)")
         require_launches("mark-less", mrun["launches"], ("occ_pair", "sampled_walk"))
@@ -1616,6 +2123,20 @@ def main() -> int:
         log(f"phase 15 facade and CLI: {json.dumps(facade)} ({time.perf_counter() - t0:.3f} s)")
         paths["facade"] = {"launches": facade["launches"], "checked_vs_plain": facade["checked_vs_plain"],
                            "sites": [], "record": facade}
+
+        # Phase 18, while phase 14's engine lives (the narrow twins' rows).
+        t0 = time.perf_counter()
+        engine, ship_s = ship(markless, device, wide=True)
+        wrun = wide_serve("mark-less", engine, ship_s, c20["batches"], mrun["results"], device)
+        del markless, engine
+        log(f"phase 18 wide mark-less path (.awry): {wrun['queries']} queries in {wrun['serve_s']:.3f} s; "
+            f"launches {wrun['launches']}; phase 14's answers ({time.perf_counter() - t0:.3f} s with the ship)")
+        require_launches("wide mark-less", wrun["launches"], ("occ_pair_wide", "sampled_walk_wide"))
+        if wrun["launches"]["sampled_walk"] or wrun["launches"]["occ_pair"]:
+            raise AssertionError("the wide mark-less path launched a narrow rank or walk kernel")
+        paths["markless_wide"] = wide_report("markless_wide", wrun, mrun["engine"].device_index, device)
+        wrun["engine"].release()
+        del wrun
         mrun["engine"].release()
         del mrun
     gc.collect()
@@ -1634,14 +2155,32 @@ def main() -> int:
         log(f"phase 16 sustained {name}: {v['device_sustained_qps']:.1f} queries/s with every output reduced on "
             f"the card, {v['wire_qps']:.1f} from the wire")
 
+    t0 = time.perf_counter()
+    frun = federation_path(device, rng)
+    log(f"phase 19 federation (pan-genome shape, 256 Mbp, 4 partitions, mark 32): {frun['queries']} drawn reads in "
+        f"{frun['serve_s']:.3f} s, {frun['edge_reads']} boundary reads; launches {frun['launches']} "
+        f"({time.perf_counter() - t0:.3f} s with the text and the build)")
+    require_launches("federation", frun["launches"], ("window_read", "occ_pair", "marked_walk"))
+    t0 = time.perf_counter()
+    checks = check_federation(frun, rng)
+    log(f"  federation correctness: {json.dumps(checks)} ({time.perf_counter() - t0:.3f} s)")
+    paths["federation"] = federation_report(frun, device) | {"checks": checks}
+    del frun
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # Times of window_read and occ_pair come from the chr1 path (slice 1's
     # numbers stay comparable), marked_walk's and backstep's (one visit over
     # the walk's recorded rows) from the GRCh38-shaped path, occ's from the
     # chr20-shaped k-mer build; launches add up over all paths.
+    # The wide variants' times come from phases 17 (GRCh38-shaped) and 18
+    # (mark-less), each beside its narrow twin on the same rows.
     times_from = {"window_read": "chr1", "occ_pair": "chr1", "backstep": "grch38", "occ": "chr20",
-                  "marked_walk": "grch38", "sampled_walk": "markless"}
+                  "marked_walk": "grch38", "sampled_walk": "markless", "occ_pair_wide": "grch38_wide",
+                  "backstep_wide": "grch38_wide", "marked_walk_wide": "grch38_wide",
+                  "sampled_walk_wide": "markless_wide"}
     kernels_line = []
-    for name in KERNELS:
+    for name in ALL_KERNELS:
         path = times_from[name]
         agg = paths[path]["per_kernel"][name]
         # Phase 3's inputs and every main-path call checked in the reports.
@@ -1651,14 +2190,14 @@ def main() -> int:
         errs += [row["max_abs_err"] for p in paths.values() for row in p.get("sites", ()) if row["kernel"] == name]
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": sum(p["launches"][name] for p in paths.values() if "launches" in p),
+            "launches": sum(p["launches"].get(name, 0) for p in paths.values() if "launches" in p),
             "max_abs_err": max(errs),
-            "ms": agg["ms"], "ms_write_flush": agg["ms_write_flush"], "plain_ms": agg["plain_ms"],
-            "bound_ms": agg["bound_ms"], "library_ms_write_flush": agg["library_ms_write_flush"],
+            "ms": agg["ms"], "ms_write_flush": agg.get("ms_write_flush"), "plain_ms": agg["plain_ms"],
+            "bound_ms": agg["bound_ms"], "library_ms_write_flush": agg.get("library_ms_write_flush"),
             "bound_by": "bytes" if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / INT32_OPS_PER_S else "operations",
             "library_ms": agg["library_ms"], "times_from_path": path,
-            "launches_by_path": {p: v["launches"][name] for p, v in paths.items() if "launches" in v},
-        })
+            "launches_by_path": {p: v["launches"].get(name, 0) for p, v in paths.items() if "launches" in v},
+        } | ({"narrow_twin_ms": agg["narrow_twin_ms"]} if "narrow_twin_ms" in agg else {}))
     total_s = time.perf_counter() - t_start
     log(f"total seconds: {total_s:.3f}")
     record = {

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from awry_tpu_torch import Alphabet, FmBuildArgs, FmIndex, Symbol, build_from_records, load_awry, save_awry
+from awry_tpu_torch.alphabet import code_to_index_table, index_to_code_table
 from awry_tpu_torch.ops import (
     FmQueryEngine,
     count_locate_capped_t,
+    fused_row_words,
     kernels,
     lf_walk,
     populate_kmer_table_device,
@@ -411,3 +413,133 @@ def test_markless_capped_locate_does_not_sync(card, tmp_path):
     want = count_locate_capped_t(on_cpu.device_index, *on_cpu._upload(wire, qlens)[:2], 8, **flags)
     for x, y in zip(out, want):
         assert torch.equal(x.cpu(), y)
+
+
+# -- the wide variants (64-bit engine) and the federation -----------------------
+
+
+def _wide_tables(card, alphabet, nb, shift, seed, walkable=False):
+    """Synthetic wide rows on the card: random planes and marks, relative
+    milestones below 2**24, group bases and prefix sums past 2**32.
+    ``walkable``: relative milestones 0 and bases that take an LF step from
+    group g into the last block of group g - 1, so every sampled walk ends."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    v, c = alphabet.num_planes, alphabet.cardinality
+    blocks = torch.randint(-(2**31), 2**31, (nb, fused_row_words(alphabet)), device=card, generator=gen)
+    blocks = blocks.to(torch.int32)
+    blocks[:, v * 8 : v * 8 + c] = 0 if walkable else torch.randint(0, 2**24, (nb, c), device=card, generator=gen,
+                                                                    dtype=torch.int32)
+    blocks[:, v * 8 + c + 8] = torch.randint(0, 2**24, (nb,), device=card, generator=gen, dtype=torch.int32)
+    groups = -(-nb // (1 << shift))
+    prefix = torch.randint(2**32, 2**34, (c + 1,), device=card, generator=gen).sort().values
+    if walkable:
+        g = torch.arange(groups, device=card)[:, None]
+        ms_base = g * (256 << shift) - 255 - prefix[None, :c]
+    else:
+        ms_base = torch.randint(2**32, 2**40, (groups, c), device=card, generator=gen)
+    marks = torch.randint(0, 2**36, (groups,), device=card, generator=gen)
+    codes = torch.from_numpy(index_to_code_table(alphabet).astype(np.int32)).to(card)
+    c2i = torch.from_numpy(code_to_index_table(alphabet).astype(np.int32)).to(card)
+    return blocks, kernels.WideBases(ms_base.contiguous(), marks, shift), prefix, codes, c2i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+def test_wide_kernels_match_plain(card, alphabet):
+    """occ_pair_wide, backstep_wide, marked_walk_wide (marks 4 and 32) and
+    sampled_walk_wide with its range-fed entry (sa_ratio 8 and 12) against
+    their plain versions on the card: nucleotide over 2**24 + 300 blocks
+    (positions past 2**32), amino over 2**18 blocks in groups of 16; bases,
+    prefix sums and SA values past 2**32; rows 0, block edges, the last row
+    and rows past either end."""
+    nb, shift = (2**24 + 300, 16) if alphabet is Alphabet.NUCLEOTIDE else (2**18, 4)
+    v, c = alphabet.num_planes, alphabet.cardinality
+    top = nb * 256
+    blocks, bases, prefix, codes, c2i = _wide_tables(card, alphabet, nb, shift, 31)
+    rng = np.random.default_rng(32)
+    edges = [0, 255, 256, top - 1, top + 7, -3, 2**32 - 1, 2**32]
+    pos = torch.from_numpy(np.concatenate([edges, rng.integers(0, top, size=20_000)]).astype(np.int64)).to(card)
+    pos_b = (pos + torch.randint(0, 600, pos.shape, device=card)).clamp_max(top - 1)
+    sym = torch.randint(0, c, pos.shape, device=card, dtype=torch.int32)
+    n0 = kernels.occ_pair_wide.launches
+    got = kernels.occ_pair_wide(blocks, bases, pos, pos_b, sym, codes, v)
+    assert kernels.occ_pair_wide.launches == n0 + 1
+    want = kernels.occ_pair_wide_plain(blocks, bases, pos, pos_b, sym, codes, v)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and int(got[0].max()) >= 2**32
+    args = (prefix, codes, c2i, v, v * 8 + c, alphabet.ambiguity_idx)
+    got = kernels.backstep_wide(blocks, bases, pos, *args)
+    want = kernels.backstep_wide_plain(blocks, bases, pos, *args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    bwt_len = top - 3
+    for mark in (4, 32):
+        sa = torch.randint(2**32 if bwt_len > 2**32 else 0, bwt_len, (-(-bwt_len // mark),), device=card)
+        walk = (blocks, bases, pos, *args, mark, sa, bwt_len)
+        assert torch.equal(kernels.marked_walk_wide(*walk), kernels.marked_walk_wide_plain(*walk)), mark
+        del sa
+    blocks, bases, prefix, codes, c2i = _wide_tables(card, alphabet, nb, shift, 33, walkable=True)
+    counts = torch.from_numpy(rng.integers(0, 5, size=pos.shape[0])).to(card)
+    for sa_ratio in (8, 12):
+        sa = torch.randint(0, bwt_len, (-(-bwt_len // sa_ratio),), device=card)
+        tail = (prefix, codes, c2i, v, alphabet.ambiguity_idx, sa_ratio, sa, bwt_len)
+        n0 = kernels.sampled_walk_wide.launches
+        got = kernels.sampled_walk_wide(blocks, bases, pos, *tail)
+        assert torch.equal(got, kernels.sampled_walk_wide_plain(blocks, bases, pos, *tail)), sa_ratio
+        got = kernels.sampled_walk_ranges_wide(blocks, bases, pos, counts, 3, *tail)
+        want = kernels.sampled_walk_ranges_wide_plain(blocks, bases, pos, counts, 3, *tail)
+        assert torch.equal(got, want) and kernels.sampled_walk_wide.launches == n0 + 2, sa_ratio
+        del sa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("marks", [True, False])
+def test_wide_engine_on_card(card, marks, tmp_path, monkeypatch):
+    """FmQueryEngine(wide=True) on the card, milestone groups of 2 blocks,
+    gives the CPU's answers, marked (mark 4) and without marks (a .awry
+    load); its search with every step masked (count_batch_dispatch's) makes
+    no host sync."""
+    import awry_tpu_torch.ops.wide as wide_mod
+    from awry_tpu_torch.ops.search import count_batch_kernel_t
+
+    monkeypatch.setattr(wide_mod, "GROUP_SHIFT", 1)
+    rng = np.random.default_rng(34)
+    seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=40_000))
+    index = build_from_records([("a", seq[:25_000]), ("b", seq[25_000:])],
+                               FmBuildArgs(lookup_table_kmer_len=4, locate_mark_ratio=4))
+    if not marks:
+        save_awry(index, str(tmp_path / "x.awry"))
+        index = load_awry(str(tmp_path / "x.awry"), device=card)
+    on_card, on_cpu = FmQueryEngine(index, device=card, wide=True), FmQueryEngine(index, device="cpu", wide=True)
+    queries = [seq[s : s + 20] for s in rng.integers(0, len(seq) - 20, size=3000)] + [seq[10:13], b"ACNGT"]
+    for a, b in zip(on_card.count_locate_arrays(queries, cap=4), on_cpu.count_locate_arrays(queries, cap=4)):
+        assert np.array_equal(a, b)
+    wire, qlens = on_card.encode_queries(queries)
+    assert wire.dtype == np.uint8  # the nibble wire: no seeded floor
+    qt, ql, flags = on_card._upload(wire, qlens)
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts = count_batch_kernel_t(on_card.device_index, qt, ql, **flags, skip_idle=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(counts.cpu().numpy()[: len(queries)], on_cpu.count_batch(queries).astype(np.int64))
+
+
+@pytest.mark.cuda
+def test_partitioned_on_card(card):
+    """PartitionedFmIndex with no device= serves on the card and gives the
+    answers of device="cpu"."""
+    from awry_tpu_torch.parallel import PartitionedFmIndex
+
+    rng = np.random.default_rng(35)
+    records = [(f"r{i}", bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=3000))) for i in range(8)]
+    args = FmBuildArgs(lookup_table_kmer_len=4, locate_mark_ratio=32)
+    fed = PartitionedFmIndex.build_from_records(records, args, max_partition_symbols=7000, max_query_len=32)
+    on_cpu = PartitionedFmIndex.build_from_records(records, args, max_partition_symbols=7000, max_query_len=32,
+                                                   device="cpu")
+    text = b"N".join(s for _, s in records)
+    queries = [text[s : s + 30] for s in rng.integers(0, len(text) - 30, size=2000)]
+    for a, b in zip(fed.count_locate_arrays(queries), on_cpu.count_locate_arrays(queries)):
+        assert np.array_equal(a, b)
+    assert np.array_equal(fed.count_batch(queries[:300]), on_cpu.count_batch(queries[:300]))
+    assert {p.engine.device.type for p in fed.partitions} == {"cuda"}
