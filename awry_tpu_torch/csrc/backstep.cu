@@ -125,6 +125,20 @@
 // exact only for 32-bit rows).  Bound: as the narrow twins, with 8-byte SA
 // values and wider outputs.
 //
+// backstep_shard is the range-sharded index's LF step (Mode B,
+// awry_tpu_torch/parallel/sharding.py): a third instantiation of backstep's
+// template over one shard's rows, blocks [first_block, first_block +
+// local_blocks) of total_blocks.  A row is clamped into the whole table as
+// the narrow kernel clamps it; a row whose block lies outside the window
+// writes 0 to both outputs and reads nothing, an owned row is read from the
+// window.  Milestones and mark milestones count over the whole BWT, so the
+// sum over the shards equals backstep on the whole table.  It replaces the
+// collective backstep of Mode B (awry_tpu/parallel/sharding.py
+// _sharded_backstep_fn: plain gathers of the local rows and two psums over
+// the shard axis, the Mode B counterpart of _backstep_kernel_anchored,
+// sweep.py:1123).  Bound: the owned rows' sectors, and every row's 20 B of
+// I/O.
+//
 // ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 46 / 60,
 // backstep_wide 64 / 72; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
 // range-fed sampled walk 65 / 78, wide 64 / 80.
@@ -330,16 +344,33 @@ __device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, Mar
   return (pick(marks, r.word) >> r.bit) & 1u;
 }
 
-// mark: (mark_rank << 1) | mark_bit as uint32 (narrow: 31 bits of the
-// rank) or int64 (wide).
-template <int V, bool kWide>
-__global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64_t* __restrict__ rows, int64_t n,
-                                int64_t* __restrict__ stepped, MarkRank<kWide>* __restrict__ mark) {
+// backstep's variants: the whole table (kNarrow), a 64-bit index (kWide),
+// one shard's window (kShard: t.blocks holds the rows of blocks
+// [first_block, first_block + local_blocks), t.nbits covers the whole
+// table, and a row outside the window writes 0 to both outputs).
+enum class Variant { kNarrow, kWide, kShard };
+
+// mark: (mark_rank << 1) | mark_bit as uint32 (narrow and shard: 31 bits of
+// the rank) or int64 (wide).
+template <int V, Variant kVar>
+__global__ void backstep_kernel(const WalkTables t, int mark_offset, uint32_t first_block, uint32_t local_blocks,
+                                const int64_t* __restrict__ rows, int64_t n, int64_t* __restrict__ stepped,
+                                MarkRank<kVar == Variant::kWide>* __restrict__ mark) {
+  constexpr bool kWide = kVar == Variant::kWide;
   __shared__ CodeStep tab[1 << V];
   load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
+  RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
+  if constexpr (kVar == Variant::kShard) {
+    const uint32_t local = r.blk - first_block;  // wraps below the window
+    if (local >= local_blocks) {
+      stepped[i] = 0;
+      mark[i] = 0;
+      return;
+    }
+    r.row = t.blocks + (int64_t)local * t.row_words;
+  }
   RowWords<V> x;
   load_row(r, x);
   MarkRank<kWide> mark_rank;
@@ -645,18 +676,21 @@ WalkTables widen(WalkTables t, int card, const void* ms_base, const void* mark_b
   return t;
 }
 
-template <bool kWide>
-int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offset, const void* rows, int64_t n,
-                    void* stepped, void* mark, void* stream) {
+template <Variant kVar>
+int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offset, uint32_t first_block,
+                    uint32_t local_blocks, const void* rows, int64_t n, void* stepped, void* mark, void* stream) {
+  using Mark = MarkRank<kVar == Variant::kWide>;
   set_device(device);
   cudaStream_t st = (cudaStream_t)stream;
   if (n > 0) {
     if (nplanes == 3) {
-      backstep_kernel<3, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
-                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
+      backstep_kernel<3, kVar><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, first_block, local_blocks,
+                                                                   (const int64_t*)rows, n, (int64_t*)stepped,
+                                                                   (Mark*)mark);
     } else if (nplanes == 5) {
-      backstep_kernel<5, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
-                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
+      backstep_kernel<5, kVar><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, first_block, local_blocks,
+                                                                   (const int64_t*)rows, n, (int64_t*)stepped,
+                                                                   (Mark*)mark);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -713,7 +747,19 @@ extern "C" int awry_backstep(int device, const void* blocks, int64_t num_blocks,
                              void* stream) {
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                    nullptr, 0, 0);
-  return launch_backstep<false>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream);
+  return launch_backstep<Variant::kNarrow>(device, t, nplanes, mark_offset, 0, 0, rows, n, stepped, mark, stream);
+}
+
+// The shard variant: blocks holds the local_blocks rows of blocks
+// [first_block, first_block + local_blocks) of a table of total_blocks.
+extern "C" int awry_backstep_shard(int device, const void* blocks, int64_t local_blocks, int64_t first_block,
+                                   int64_t total_blocks, int row_words, int nplanes, const void* prefix_sums,
+                                   const void* codes, const void* c2i, int mark_offset, int ambiguity_idx,
+                                   const void* rows, int64_t n, void* stepped, void* mark, void* stream) {
+  const WalkTables t = walk_tables(blocks, total_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                   nullptr, 0, 0);
+  return launch_backstep<Variant::kShard>(device, t, nplanes, mark_offset, (uint32_t)first_block,
+                                          (uint32_t)local_blocks, rows, n, stepped, mark, stream);
 }
 
 extern "C" int awry_marked_walk(int device, const void* blocks, int64_t num_blocks, int row_words,
@@ -764,7 +810,7 @@ extern "C" int awry_backstep_wide(int device, const void* blocks, int64_t num_bl
   const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                          nullptr, 0, 0),
                              card, ms_base, mark_base, group_shift, nullptr);
-  return launch_backstep<true>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream);
+  return launch_backstep<Variant::kWide>(device, t, nplanes, mark_offset, 0, 0, rows, n, stepped, mark, stream);
 }
 
 extern "C" int awry_marked_walk_wide(int device, const void* blocks, int64_t num_blocks, int row_words,

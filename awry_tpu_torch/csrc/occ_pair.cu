@@ -1,6 +1,7 @@
 // occ_pair: (Occ(pos_a[i], sym[i]), Occ(pos_b[i], sym[i])) over fused block
 // rows, where Occ(p, c) = count of symbol c in BWT[0..=p]; occ: Occ(pos[i],
-// sym[i]) alone; occ_pair_wide: occ_pair over a 64-bit index (below).
+// sym[i]) alone; occ_pair_wide and occ_wide: the same over a 64-bit index;
+// occ_pair_shard: occ_pair over one shard's window of blocks (below).
 //
 // occ_pair replaces awry_tpu/ops/sweep.py:_occ_pair_pay_kernel_anchored (the
 // post-seed LF steps of seeded_pair_chain) and its twin
@@ -75,6 +76,28 @@
 // awry_tpu/ops/wide.py update_range_wide).  Bound: as occ_pair, with 8 B
 // more of output per request.
 //
+// occ_wide, the device k-mer build of a 64-bit index, is occ's template
+// instantiated the same way: both branches keep their loads, and each rank
+// adds its group's base for the request's symbol (read from L2 by the thread
+// that ranks from the stage, by lane 0 of the pair in the direct branch, each
+// beside the row reads), then writes int64.  Bound: as occ, with 4 B more of
+// output per request.
+//
+// occ_pair_shard is the range-sharded index's rank step (Mode B,
+// awry_tpu_torch/parallel/sharding.py): a third instantiation of occ_pair's
+// template over one shard's rows, blocks [first_block, first_block +
+// local_blocks) of total_blocks.  Positions are clamped into the whole table
+// as the narrow kernel clamps them; a request whose block lies outside the
+// window writes 0 and reads no row, and an owned one reads its row from the
+// window.  Milestones count over the whole BWT, so the owner's rank is the
+// global rank and the sum over the shards equals occ_pair on the whole
+// table.  It replaces the per-shard paired sweep of Mode B
+// (awry_tpu/parallel/sharding.py _sharded_update_fn: occurrence_sweep_pair,
+// sweep.py:589 _occ_pair_kernel_anchored and :608 _occ_pair_kernel, then a
+// psum over the shard axis).  The window test in the kernel takes the place
+// of the mask arithmetic the JAX code runs around each call.  Bound: the
+// owned requests' sectors, and all requests' 28 B of I/O.
+//
 // ptxas (sm_90a, -Xptxas=-v): occ_pair 32 registers (V = 3) and 36 (V = 5);
 // occ_pair_wide 32 and 42; occ 56 and 61 registers, 46,144 and 46,032 bytes
 // of shared memory.
@@ -112,6 +135,9 @@ __device__ __forceinline__ int64_t load_once(const int64_t* p) {
 }
 __device__ __forceinline__ int32_t load_once(const int32_t* p) { return __ldcs(p); }
 __device__ __forceinline__ void store_once(uint32_t* p, uint32_t v) { __stcs(p, v); }
+__device__ __forceinline__ void store_once(int64_t* p, int64_t v) {
+  __stcs(reinterpret_cast<long long*>(p), (long long)v);
+}
 
 // A read-only int64 load (the wide variants' group bases and SA values).
 __device__ __forceinline__ int64_t ldg64(const int64_t* p) {
@@ -119,6 +145,7 @@ __device__ __forceinline__ int64_t ldg64(const int64_t* p) {
 }
 
 __device__ __forceinline__ uint4 ones4() { return make_uint4(kFull, kFull, kFull, kFull); }
+__device__ __forceinline__ uint4 zeros4() { return make_uint4(0u, 0u, 0u, 0u); }
 
 // All ones where sym's code bit for plane v is clear (a zero code bit
 // matches a zero plane bit: the plane is flipped), else zero.
@@ -189,18 +216,26 @@ __device__ __forceinline__ uint32_t pair_occ(const uint32_t* __restrict__ blocks
   return ms + c;
 }
 
-// The wide variant (kWide) serves texts of 2^32 symbols and more: a row's
-// milestones are relative to its group of 2^group_shift blocks, whose
-// absolute counts sit in ms_base (int64 [groups, card], a few KB that stay
-// in L2), and the ranks are written as int64.  Lane 0 of the pair reads the
-// two group bases while the pair reads the rows.  The narrow instantiation
-// compiles to the code it had before.
-template <int V, bool kWide>
+// occ_pair's variants: the whole table (kNarrow); a 64-bit index (kWide):
+// texts of 2^32 symbols and more, whose rows' milestones are relative to
+// their group of 2^group_shift blocks, the groups' absolute counts in
+// ms_base (int64 [groups, card], a few KB that stay in L2), the ranks
+// written as int64, lane 0 of the pair reading the two group bases while the
+// pair reads the rows; one shard's window (kShard): `blocks` holds the rows
+// of blocks [first_block, first_block + local_blocks), positions are
+// clamped into the whole table (nbits), and an endpoint outside the window
+// counts 0 and reads nothing.  The narrow instantiation compiles to the code
+// it had before.
+enum class Variant { kNarrow, kWide, kShard };
+
+template <int V, Variant kVar>
 __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
     const uint32_t* __restrict__ blocks, int64_t nbits, int row_words, int card,
     const int32_t* __restrict__ codes, const int64_t* __restrict__ ms_base, int group_shift,
-    const int64_t* __restrict__ pos_a, const int64_t* __restrict__ pos_b, const int32_t* __restrict__ sym,
-    int64_t n, RankOut<kWide>* __restrict__ occ_a, RankOut<kWide>* __restrict__ occ_b) {
+    uint32_t first_block, uint32_t local_blocks, const int64_t* __restrict__ pos_a,
+    const int64_t* __restrict__ pos_b, const int32_t* __restrict__ sym, int64_t n,
+    RankOut<kVar == Variant::kWide>* __restrict__ occ_a, RankOut<kVar == Variant::kWide>* __restrict__ occ_b) {
+  constexpr bool kWide = kVar == Variant::kWide, kShard = kVar == Variant::kShard;
   const int64_t q = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 1;
   const uint32_t h = threadIdx.x & 1u;
   // Lanes past the end serve the last request again and store nothing, so
@@ -225,14 +260,23 @@ __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
   b.local = (packed >> 8) & 255u;
   const uint32_t s = (packed >> 16) & 255u, code = packed >> 24;
 
-  // One row read when both endpoints share a block, else two.
+  // A shard owns the endpoints whose block lies in its window, and reads
+  // their rows at the block's place in the window (wrapping below it).
+  const bool own_a = !kShard || a.blk - first_block < local_blocks;
+  const bool own_b = !kShard || b.blk - first_block < local_blocks;
+  if constexpr (kShard) {
+    a.blk -= first_block;
+    b.blk -= first_block;
+  }
+  // One row read when both endpoints share a block, else two (an endpoint
+  // another shard owns reads nothing and counts 0).
   const bool two = a.blk != b.blk;
   const uint32_t* row_a = row_of(blocks, a.blk, row_words);
   const uint32_t* row_b = row_of(blocks, b.blk, row_words);
-  const uint32_t ms_a = __ldg(row_a + V * 8 + s);
-  const uint32_t ms_b = two ? __ldg(row_b + V * 8 + s) : ms_a;
-  const uint4 acc_a = half_and<V>(row_a, h, code);
-  const uint4 acc_b = two ? half_and<V>(row_b, h, code) : acc_a;
+  const uint32_t ms_a = own_a ? __ldg(row_a + V * 8 + s) : 0u;
+  const uint32_t ms_b = two ? (own_b ? __ldg(row_b + V * 8 + s) : 0u) : ms_a;
+  const uint4 acc_a = own_a ? half_and<V>(row_a, h, code) : zeros4();
+  const uint4 acc_b = two ? (own_b ? half_and<V>(row_b, h, code) : zeros4()) : acc_a;
   uint32_t c = half_count(acc_a, h, a.local) | (half_count(acc_b, h, b.local) << 16);
   c += __shfl_xor_sync(kFull, c, 1, 2);
   if (h == 0 && q < n) {
@@ -253,11 +297,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
-template <int V>
+// kWide: occ_wide, over a 64-bit index's relative milestones (ms_base and
+// group_shift as for occ_pair_wide), int64 ranks.
+template <int V, bool kWide>
 __global__ void __launch_bounds__(kThreads) occ_kernel(
     const uint32_t* __restrict__ blocks, int64_t nbits, int row_words, int card,
-    const int32_t* __restrict__ codes, const int64_t* __restrict__ pos,
-    const int32_t* __restrict__ sym, int64_t n, uint32_t* __restrict__ occ) {
+    const int32_t* __restrict__ codes, const int64_t* __restrict__ ms_base, int group_shift,
+    const int64_t* __restrict__ pos, const int32_t* __restrict__ sym, int64_t n,
+    RankOut<kWide>* __restrict__ occ) {
   constexpr int R = kOccPerThread, PR = kRankPieces<V>, SR = kStageStride<V>;
   // The stage (staged branch) and the tile's requests (direct branch) share
   // one buffer.
@@ -342,7 +389,12 @@ __global__ void __launch_bounds__(kThreads) occ_kernel(
         acc1 = and_xor(acc1, srow[2 * v + 1], pol);
       }
       const uint32_t ms = reinterpret_cast<const uint32_t*>(srow)[V * 8 + q[r].sym];
-      store_once(occ + base + j, ms + half_count(acc0, 0, q[r].local) + half_count(acc1, 1, q[r].local));
+      const uint32_t o = ms + half_count(acc0, 0, q[r].local) + half_count(acc1, 1, q[r].local);
+      if constexpr (kWide) {
+        store_once(occ + base + j, ldg64(ms_base + (int64_t)(q[r].blk >> group_shift) * card + q[r].sym) + o);
+      } else {
+        store_once(occ + base + j, o);
+      }
     }
     return;
   }
@@ -361,8 +413,15 @@ __global__ void __launch_bounds__(kThreads) occ_kernel(
     const int jc = j < tile_n ? j : tile_n - 1;
     const uint32_t rest = req_rest[jc];
     const Req r{req_blk[jc], rest & 255u, (rest >> 8) & 255u, rest >> 16};
-    const uint32_t o = pair_occ<V>(blocks, row_words, r, h);
-    if (h == 0 && j < tile_n) store_once(occ + base + j, o);
+    if constexpr (kWide) {
+      // Lane 0 of the pair reads the group base while the pair reads the row.
+      const int64_t gb = h == 0 ? ldg64(ms_base + (int64_t)(r.blk >> group_shift) * card + r.sym) : 0;
+      const uint32_t o = pair_occ<V>(blocks, row_words, r, h);
+      if (h == 0 && j < tile_n) store_once(occ + base + j, gb + o);
+    } else {
+      const uint32_t o = pair_occ<V>(blocks, row_words, r, h);
+      if (h == 0 && j < tile_n) store_once(occ + base + j, o);
+    }
   }
 }
 
@@ -379,25 +438,51 @@ bool rank_part_fits(int row_words, int card) {
   return V * 8 + card <= 4 * kRankPieces<V> && row_words >= 4 * kRankPieces<V>;
 }
 
-template <bool kWide>
-int launch_occ_pair(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes, int card,
-                    const void* codes, const void* ms_base, int group_shift, const void* pos_a,
-                    const void* pos_b, const void* sym, int64_t n, void* occ_a, void* occ_b, void* stream) {
+template <Variant kVar>
+int launch_occ_pair(int device, const void* blocks, int64_t nbits, int row_words, int nplanes, int card,
+                    const void* codes, const void* ms_base, int group_shift, uint32_t first_block,
+                    uint32_t local_blocks, const void* pos_a, const void* pos_b, const void* sym, int64_t n,
+                    void* occ_a, void* occ_b, void* stream) {
+  using Out = RankOut<kVar == Variant::kWide>;
   if (int rc = set_device(device)) return rc;
   if (n > 0) {
     const unsigned grid = (unsigned)((n * 2 + kThreads - 1) / kThreads);
-    const int64_t nbits = num_blocks * 256;
     cudaStream_t st = (cudaStream_t)stream;
     if (nplanes == 3) {
-      occ_pair_kernel<3, kWide><<<grid, kThreads, 0, st>>>(
+      occ_pair_kernel<3, kVar><<<grid, kThreads, 0, st>>>(
           (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
-          group_shift, (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
-          (RankOut<kWide>*)occ_a, (RankOut<kWide>*)occ_b);
+          group_shift, first_block, local_blocks, (const int64_t*)pos_a, (const int64_t*)pos_b,
+          (const int32_t*)sym, n, (Out*)occ_a, (Out*)occ_b);
     } else if (nplanes == 5) {
-      occ_pair_kernel<5, kWide><<<grid, kThreads, 0, st>>>(
+      occ_pair_kernel<5, kVar><<<grid, kThreads, 0, st>>>(
           (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
-          group_shift, (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
-          (RankOut<kWide>*)occ_a, (RankOut<kWide>*)occ_b);
+          group_shift, first_block, local_blocks, (const int64_t*)pos_a, (const int64_t*)pos_b,
+          (const int32_t*)sym, n, (Out*)occ_a, (Out*)occ_b);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kWide>
+int launch_occ(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes, int card,
+               const void* codes, const void* ms_base, int group_shift, const void* pos, const void* sym,
+               int64_t n, void* occ, void* stream) {
+  if (int rc = set_device(device)) return rc;
+  if (n > 0) {
+    const int64_t tiles = (n + kOccTile - 1) / kOccTile;
+    const unsigned grid = (unsigned)((tiles + kOccSegments - 1) / kOccSegments * kOccSegments);
+    const int64_t nbits = num_blocks * 256;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (nplanes == 3 && rank_part_fits<3>(row_words, card)) {
+      occ_kernel<3, kWide><<<grid, kThreads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
+          group_shift, (const int64_t*)pos, (const int32_t*)sym, n, (RankOut<kWide>*)occ);
+    } else if (nplanes == 5 && rank_part_fits<5>(row_words, card)) {
+      occ_kernel<5, kWide><<<grid, kThreads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
+          group_shift, (const int64_t*)pos, (const int32_t*)sym, n, (RankOut<kWide>*)occ);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -413,8 +498,8 @@ extern "C" int awry_occ_pair(int device, const void* blocks, int64_t num_blocks,
                              int nplanes, int card, const void* codes, const void* pos_a,
                              const void* pos_b, const void* sym, int64_t n, void* occ_a,
                              void* occ_b, void* stream) {
-  return launch_occ_pair<false>(device, blocks, num_blocks, row_words, nplanes, card, codes, nullptr, 0, pos_a,
-                                pos_b, sym, n, occ_a, occ_b, stream);
+  return launch_occ_pair<Variant::kNarrow>(device, blocks, num_blocks * 256, row_words, nplanes, card, codes,
+                                           nullptr, 0, 0, 0, pos_a, pos_b, sym, n, occ_a, occ_b, stream);
 }
 
 // The wide variant: ms_base int64 [groups, card], group_shift log2 of the
@@ -423,30 +508,32 @@ extern "C" int awry_occ_pair_wide(int device, const void* blocks, int64_t num_bl
                                   int nplanes, int card, const void* codes, const void* ms_base,
                                   int group_shift, const void* pos_a, const void* pos_b, const void* sym,
                                   int64_t n, void* occ_a, void* occ_b, void* stream) {
-  return launch_occ_pair<true>(device, blocks, num_blocks, row_words, nplanes, card, codes, ms_base, group_shift,
-                               pos_a, pos_b, sym, n, occ_a, occ_b, stream);
+  return launch_occ_pair<Variant::kWide>(device, blocks, num_blocks * 256, row_words, nplanes, card, codes,
+                                         ms_base, group_shift, 0, 0, pos_a, pos_b, sym, n, occ_a, occ_b, stream);
+}
+
+// The shard variant: blocks holds the local_blocks rows of blocks
+// [first_block, first_block + local_blocks) of a table of total_blocks.
+extern "C" int awry_occ_pair_shard(int device, const void* blocks, int64_t local_blocks, int64_t first_block,
+                                   int64_t total_blocks, int row_words, int nplanes, int card, const void* codes,
+                                   const void* pos_a, const void* pos_b, const void* sym, int64_t n, void* occ_a,
+                                   void* occ_b, void* stream) {
+  return launch_occ_pair<Variant::kShard>(device, blocks, total_blocks * 256, row_words, nplanes, card, codes,
+                                          nullptr, 0, (uint32_t)first_block, (uint32_t)local_blocks, pos_a, pos_b,
+                                          sym, n, occ_a, occ_b, stream);
 }
 
 extern "C" int awry_occ(int device, const void* blocks, int64_t num_blocks, int row_words,
                         int nplanes, int card, const void* codes, const void* pos,
                         const void* sym, int64_t n, void* occ, void* stream) {
-  if (int rc = set_device(device)) return rc;
-  if (n > 0) {
-    const int64_t tiles = (n + kOccTile - 1) / kOccTile;
-    const unsigned grid = (unsigned)((tiles + kOccSegments - 1) / kOccSegments * kOccSegments);
-    const int64_t nbits = num_blocks * 256;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (nplanes == 3 && rank_part_fits<3>(row_words, card)) {
-      occ_kernel<3><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
-          (const int64_t*)pos, (const int32_t*)sym, n, (uint32_t*)occ);
-    } else if (nplanes == 5 && rank_part_fits<5>(row_words, card)) {
-      occ_kernel<5><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes,
-          (const int64_t*)pos, (const int32_t*)sym, n, (uint32_t*)occ);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_occ<false>(device, blocks, num_blocks, row_words, nplanes, card, codes, nullptr, 0, pos, sym, n,
+                           occ, stream);
+}
+
+// The wide variant: ms_base and group_shift as for occ_pair_wide; occ int64.
+extern "C" int awry_occ_wide(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes,
+                             int card, const void* codes, const void* ms_base, int group_shift, const void* pos,
+                             const void* sym, int64_t n, void* occ, void* stream) {
+  return launch_occ<true>(device, blocks, num_blocks, row_words, nplanes, card, codes, ms_base, group_shift, pos,
+                          sym, n, occ, stream);
 }

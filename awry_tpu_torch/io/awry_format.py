@@ -22,9 +22,8 @@ reference never reads its table's entries).  On load the stored table is
 skipped and the table is re-derived from the index on a device by the
 build's own breadth-wise path (ops/kmer.py, through the ``occ`` kernel on
 the card), so a loaded table is right whoever wrote the file; a file of
-2**32 symbols and more raises NotImplementedError until ``occ`` has a wide
-variant.  A ``.awry``
-index carries no locate marks and no packed text: the engine serves it by
+2**32 symbols and more derives it in the 64-bit layout (ops/wide.py,
+through ``occ_wide``).  A ``.awry`` index carries no locate marks and no packed text: the engine serves it by
 the classic path and the row-sampled walk (ops/locate.py).
 """
 
@@ -100,6 +99,15 @@ def load_awry(path: str, *, device=None, strict: bool = False) -> FmIndexData:
     also runs the value-level checks (FmIndexData.validate(strict=True)) and
     refuses trailing bytes.  The format has no checksums, so a flipped bit
     in the planes is found by no loader."""
+    index = _read_index(path, strict)
+    # A text of 2**32 symbols and more ships in the 64-bit layout here.
+    index.kmer_table = populate_kmer_table_device(to_device(index, device, minimal=True), index.kmer_len)
+    index.validate(strict=strict)
+    return index
+
+
+def _read_index(path: str, strict: bool) -> FmIndexData:
+    """The file's sections as an FmIndexData whose k-mer table is empty."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
 
@@ -121,12 +129,6 @@ def load_awry(path: str, *, device=None, strict: bool = False) -> FmIndexData:
         block_stride = nv * 32 + slots * 8
         if nb * block_stride > size:
             raise ValueError(f"truncated .awry file: {nb} blocks x {block_stride} B exceed the file")
-        if bwt_len >= 2**32:
-            # The k-mer table is re-derived through the 32-bit occ kernel.
-            raise NotImplementedError(
-                f"bwt_len={bwt_len}: loading a .awry file of 2**32 symbols and more needs the wide variant of "
-                "occ to re-derive its k-mer table, not ported yet (ROADMAP Queue 1: an occ wide variant)"
-            )
         raw = np.frombuffer(read_exact(nb * block_stride, "block section"), dtype=np.uint8).reshape(nb, block_stride)
         planes = raw[:, : nv * 32].copy().view("<u4").reshape(nb, nv, WORDS_PER_WINDOW).astype(np.uint32)
         milestones = raw[:, nv * 32 :].copy().view("<u8")[:, : alphabet.cardinality].astype(np.uint64)
@@ -156,7 +158,7 @@ def load_awry(path: str, *, device=None, strict: bool = False) -> FmIndexData:
         if strict and f.read(1):
             raise ValueError("trailing bytes after the .awry sequence index")
 
-    index = FmIndexData(
+    return FmIndexData(
         alphabet=alphabet,
         planes=planes,
         milestones=milestones,
@@ -164,12 +166,9 @@ def load_awry(path: str, *, device=None, strict: bool = False) -> FmIndexData:
         sampled_sa=sampled_sa,
         sa_ratio=int(sa_ratio),
         bwt_len=int(bwt_len),
-        kmer_table=np.zeros((0, 2), dtype=np.uint64),  # filled below
+        kmer_table=np.zeros((0, 2), dtype=np.uint64),  # filled by load_awry
         kmer_len=int(kmer_len),
         seq_starts=seq_starts,
         headers=headers,
         version_number=int(version),
     )
-    index.kmer_table = populate_kmer_table_device(to_device(index, device, minimal=True), index.kmer_len)
-    index.validate(strict=strict)
-    return index

@@ -24,7 +24,9 @@
 A table the index lacks ships as a one-word placeholder: text_packed
 without packed text, text_sampled_sa without marks, sampled_sa with them.
 ``to_device(index, device, minimal=True)`` ships only what a rank reads
-(fused rows, prefix sums, codes): the device k-mer build (ops/kmer.py).
+(fused rows, prefix sums, codes): the device k-mer build (ops/kmer.py); a
+text of 2**32 symbols and more takes the 64-bit layout's minimal ship
+(``to_device_wide(minimal=True)``).
 
 Tables are int32 tensors holding the uint32 bit patterns (numpy views, not
 value casts); prefix sums and record starts are int64.  A text of 2**32
@@ -202,16 +204,16 @@ def to_device(index: FmIndexData, device=None, *, minimal: bool = False, slots: 
     ships for the classic path and the row-sampled walk.
 
     ``minimal``: ship only the fused rows, prefix sums and codes (the other
-    tables are one-word placeholders and kmer_len is 0).  ``slots``: ship
-    the slot regime's fat rows when slot_regime_capable holds (False: never)."""
+    tables are one-word placeholders and kmer_len is 0); past 2**32 symbols
+    in the 64-bit layout (ops/wide.py), whose ranks go through ``occ_wide``.
+    ``slots``: ship the slot regime's fat rows when slot_regime_capable
+    holds (False: never)."""
     device = resolve_device(device)
     if index.bwt_len >= 2**32:
         if minimal:
-            raise NotImplementedError(
-                f"bwt_len={index.bwt_len}: the device k-mer build ranks through the 32-bit occ kernel; a text "
-                "of 2**32 symbols and more needs its wide variant, not ported yet (ROADMAP Queue 1: an occ "
-                "wide variant); build its k-mer table on the host"
-            )
+            from .wide import to_device_wide
+
+            return to_device_wide(index, device, minimal=True)
         raise NotImplementedError(
             f"bwt_len={index.bwt_len}: a text of 2**32 symbols and more ships through the 64-bit layout: "
             "FmQueryEngine(index, wide=True) or ops.wide.to_device_wide"

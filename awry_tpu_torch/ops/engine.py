@@ -16,6 +16,14 @@ index.  A text of 2**32 symbols and more ships in the 64-bit layout
 The engine runs on the card: ``device=None`` means ``cuda:0`` and raises
 when no CUDA device exists; ``device="cpu"`` runs the kernels' plain
 PyTorch versions on the host (the tests do this).
+
+``mesh=`` (parallel/mesh.py, a mesh whose ``shard`` axis has size 1) serves
+data-parallel, Mode A (the counterpart of awry_tpu/ops/engine.py's mesh
+seam): the index ships once per distinct device of the ``data`` axis, each
+padded wire batch is cut into ``data`` equal contiguous slices, each slice
+is served on its slot's device through the path above, and the results
+merge in query order.  The JAX seam wraps every kernel in ``shard_map``;
+here a slice is simply served by the engine of its slot's device.
 """
 
 from __future__ import annotations
@@ -86,11 +94,47 @@ def encode_query_batch(alphabet, queries, *, min_batch: int = 16, min_len: int =
     return qsyms, qlens
 
 
+def upload_wire(wire: np.ndarray, qlens: np.ndarray, device: torch.device, crumb_inv: torch.Tensor | None,
+                wire_packed: bool, kmer_len: int):
+    """Wire batch -> (qt int32[L, B], qlens int64[B], kernel flags) on
+    ``device``; ``crumb_inv`` (on ``device``) maps dense codes to symbol
+    indexes.  ``seeded_floor`` holds when no lane is live before step k:
+    crumb lanes k-mer-seed whenever qlen >= k."""
+    w = torch.from_numpy(np.ascontiguousarray(wire)).to(device)
+    ql = torch.from_numpy(np.ascontiguousarray(qlens)).to(device).to(torch.int64)
+    crumb = wire_packed and wire.dtype == np.int8
+    if crumb:
+        qt = unpack_crumbs_t(w, crumb_inv)
+    elif wire_packed:
+        qt = unpack_nibbles_t(w)
+    else:
+        qt = w.T.to(torch.int32).contiguous()
+    k = kmer_len
+    q = qlens.astype(np.int64)
+    floor = crumb and k > 0 and qt.shape[0] >= k and bool(((q <= 1) | (q >= k)).all())
+    return qt, ql, {"no_sentinel": crumb, "seeded_floor": floor}
+
+
+def _data_slots(mesh) -> int:
+    """The size of a data-parallel mesh's ``data`` axis; raises ValueError
+    for a mesh that shards the index or whose data axis is no power of two."""
+    for axis, size in mesh.shape.items():
+        if axis != "data" and size != 1:
+            raise ValueError(
+                f"FmQueryEngine mesh axis {axis!r} must be size 1 (use ShardedFmEngine for range sharding)"
+            )
+    data = mesh.shape["data"]
+    if data & (data - 1):
+        raise ValueError("mesh data axis size must be a power of two")
+    return data
+
+
 class FmQueryEngine:
-    """Batch count/locate engine over an FM-index shipped to one device."""
+    """Batch count/locate engine over an FM-index shipped to one device (or
+    to each device of a data-parallel mesh)."""
 
     def __init__(self, index: FmIndexData, *, device=None, slots: bool = True, use_verify: bool | None = None,
-                 strict: bool = False, wide: bool | None = None):
+                 strict: bool = False, wide: bool | None = None, mesh=None):
         """``slots``: serve through the slot regime when the index is
         slot-capable (False: the switch-step path on any index).
         ``use_verify``: None serves through the verify path whenever the
@@ -101,7 +145,17 @@ class FmQueryEngine:
         be clamped into wrong answers.  ``wide``: None ships the index in
         the 64-bit layout (ops/wide.py) exactly when ``bwt_len >= 2**32``;
         True forces it on any index, False refuses it.  The wide index is
-        served by the classic path alone (no verify path, no slot rows)."""
+        served by the classic path alone (no verify path, no slot rows).
+        ``mesh``: data-parallel serving over the mesh's ``data`` slots (the
+        module docstring); its ``shard`` axis must have size 1 (range
+        sharding is parallel.sharding.ShardedFmEngine) and its ``data``
+        axis a power of two (padded batches are powers of two).  It names
+        the devices, so ``device`` must be None."""
+        if mesh is not None:
+            data = _data_slots(mesh)
+            if device is not None:
+                raise ValueError("FmQueryEngine: pass either device= or mesh=, not both")
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
         self.strict = strict
         if strict:
@@ -144,12 +198,44 @@ class FmQueryEngine:
             # Longest padded query the backward text-window read covers.
             self._verify_max_len = TEXT_PAD_WORDS * spw
         self._seq_starts_host = np.asarray(index.seq_starts, dtype=np.int64)
+        # Data-parallel slots: the engine of each data slot's device (this
+        # one for its own device), all adding into this engine's stats.
+        self._data_shards = 1
+        self._slot_engines = None
+        if mesh is not None:
+            self._data_shards = data
+            engines = {self.device: self}
+            for dev in mesh.devices[:, 0]:
+                dev = resolve_device(dev)
+                if dev not in engines:
+                    engines[dev] = FmQueryEngine(index, device=dev, slots=slots, use_verify=use_verify, wide=wide)
+                    engines[dev].stats = self.stats
+            self._slot_engines = [engines[resolve_device(dev)] for dev in mesh.devices[:, 0]]
+
+    def _engines(self) -> list:
+        """This engine and the other slot devices' engines, once each."""
+        if self._slot_engines is None:
+            return [self]
+        return list({id(e): e for e in [self, *self._slot_engines]}.values())
+
+    def _slices(self, wire: np.ndarray, qlens: np.ndarray, n: int) -> list[tuple]:
+        """(engine, wire, qlens, true count) of each data slot's contiguous
+        slice of a wire batch, in query order (the whole batch without a
+        mesh)."""
+        if self._slot_engines is None:
+            return [(self, wire, qlens, n)]
+        d = len(self._slot_engines)
+        if wire.shape[0] % d:
+            raise ValueError(f"a wire batch of {wire.shape[0]} rows does not split into {d} equal slices")
+        per = wire.shape[0] // d
+        return [(eng, wire[i * per : (i + 1) * per], qlens[i * per : (i + 1) * per], min(max(n - i * per, 0), per))
+                for i, eng in enumerate(self._slot_engines)]
 
     # -- host-side encoding ----------------------------------------------------
     def encode_queries(self, queries) -> tuple[np.ndarray, np.ndarray]:
         """Encode + pad str/bytes queries into the host wire: (wire, qlens)
         numpy arrays (qlens uint8 when every query is <= 255 symbols)."""
-        qsyms, qlens = encode_query_batch(self.device_index.alphabet, queries)
+        qsyms, qlens = encode_query_batch(self.device_index.alphabet, queries, min_batch=max(16, self._data_shards))
         wire = pack_wire(qsyms, qlens, self._crumb_lut)
         if qlens.max(initial=0) <= 255:
             qlens = qlens.astype(np.uint8)
@@ -163,37 +249,31 @@ class FmQueryEngine:
 
     def _upload(self, wire: np.ndarray, qlens: np.ndarray):
         """Wire batch -> (qt int32[L, B], qlens int64[B], kernel flags) on the
-        device.  ``seeded_floor`` holds when no lane is live before step k:
-        crumb lanes k-mer-seed whenever qlen >= k."""
-        w = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
-        ql = torch.from_numpy(np.ascontiguousarray(qlens)).to(self.device).to(torch.int64)
-        crumb = self._wire_packed and wire.dtype == np.int8
-        if crumb:
-            qt = unpack_crumbs_t(w, self._crumb_inv)
-        elif self._wire_packed:
-            qt = unpack_nibbles_t(w)
-        else:
-            qt = w.T.to(torch.int32).contiguous()
-        k = self.device_index.kmer_len
-        q = qlens.astype(np.int64)
-        floor = crumb and k > 0 and qt.shape[0] >= k and bool(((q <= 1) | (q >= k)).all())
-        return qt, ql, {"no_sentinel": crumb, "seeded_floor": floor}
+        device (upload_wire)."""
+        return upload_wire(wire, qlens, self.device, self._crumb_inv, self._wire_packed, self.device_index.kmer_len)
 
     # -- public API --------------------------------------------------------------
     def count_batch(self, queries) -> np.ndarray:
         """Occurrence count per query (uint64)."""
-        qt, ql, flags = self._upload(*self.encode_queries(queries))
-        counts = count_batch_kernel_t(self.device_index, qt, ql, **flags)
-        return counts.cpu().numpy()[: len(queries)].astype(np.uint64)
+        wire, qlens = self.encode_queries(queries)
+        parts = []
+        for eng, w, q, m in self._slices(wire, qlens, len(queries)):
+            qt, ql, flags = eng._upload(w, q)
+            parts.append((count_batch_kernel_t(eng.device_index, qt, ql, **flags), m))
+        return np.concatenate([c.cpu().numpy()[:m] for c, m in parts]).astype(np.uint64)
 
     def count_batch_dispatch(self, encoded) -> torch.Tensor:
         """Counts of a pre-encoded batch (``(wire, qlens[, n])`` from
         encode_queries) as the device's int64 tensor, padded to the wire's
         batch, with no host sync: every search step runs, masked, so a
-        caller can dispatch several engines before it reads any."""
+        caller can dispatch several engines before it reads any.  With a
+        mesh the slices' counts are gathered on this engine's device."""
         wire, qlens = encoded[:2]
-        qt, ql, flags = self._upload(wire, qlens)
-        return count_batch_kernel_t(self.device_index, qt, ql, **flags, skip_idle=False)
+        out = []
+        for eng, w, q, _ in self._slices(wire, qlens, wire.shape[0]):
+            qt, ql, flags = eng._upload(w, q)
+            out.append(count_batch_kernel_t(eng.device_index, qt, ql, **flags, skip_idle=False).to(self.device))
+        return out[0] if len(out) == 1 else torch.cat(out)
 
     def count_locate_arrays(self, queries, *, cap: int = 8):
         """Bulk count+locate of one batch.  Returns ``(counts, seq_idx, local,
@@ -214,10 +294,14 @@ class FmQueryEngine:
 
     def search_ranges_batch(self, queries) -> tuple[np.ndarray, np.ndarray]:
         """Final BWT ranges per query (int64, inclusive; empty iff start > end)."""
-        qt, ql, flags = self._upload(*self.encode_queries(queries))
-        starts, ends = search_ranges_t(self.device_index, qt, ql, **flags)
-        n = len(queries)
-        return starts.cpu().numpy()[:n], ends.cpu().numpy()[:n]
+        wire, qlens = self.encode_queries(queries)
+        starts, ends = [], []
+        for eng, w, q, m in self._slices(wire, qlens, len(queries)):
+            qt, ql, flags = eng._upload(w, q)
+            s, e = search_ranges_t(eng.device_index, qt, ql, **flags)
+            starts.append(s.cpu().numpy()[:m])
+            ends.append(e.cpu().numpy()[:m])
+        return np.concatenate(starts), np.concatenate(ends)
 
     def count(self, query) -> int:
         """Occurrence count of one query."""
@@ -232,8 +316,9 @@ class FmQueryEngine:
         through indexes on one card can free the memory
         (``torch.cuda.empty_cache()`` returns it to the driver).  The engine
         is unusable afterwards."""
-        self.device_index = None
-        self._crumb_inv = None
+        for eng in self._engines():
+            eng.device_index = None
+            eng._crumb_inv = None
 
     def count_locate_stream(self, query_batches, *, cap: int = 8, depth: int = 2):
         """Pipelined bulk serving: a generator over batches, each a list of
@@ -243,13 +328,13 @@ class FmQueryEngine:
         memory without blocking, and an event marks when they have landed, so
         host assembly of one batch overlaps the device work of the next.
         Each item matches count_locate_arrays' return."""
-        inflight: list[tuple] = []
+        inflight: list[list] = []
         for batch in query_batches:
             inflight.append(self._dispatch(batch, cap))
             if len(inflight) >= depth:
-                yield self._assemble(*inflight.pop(0), cap)
+                yield self._assemble(inflight.pop(0), cap)
         while inflight:
-            yield self._assemble(*inflight.pop(0), cap)
+            yield self._assemble(inflight.pop(0), cap)
 
     # -- dispatch / assembly -------------------------------------------------------
     def _to_host(self, *tensors):
@@ -305,19 +390,25 @@ class FmQueryEngine:
         counts, text_pos, starts, _ = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
         return "classic", (counts, text_pos, starts), None
 
-    def _dispatch(self, batch, cap):
-        wire, qlens, n = self._wire_of(batch)
+    def _dispatch(self, batch, cap) -> list[tuple]:
+        """Launch one batch: per data slice, its engine and what its
+        assembly needs."""
+        return [(eng, eng._dispatch_slice(w, q, m, cap)) for eng, w, q, m in self._slices(*self._wire_of(batch))]
+
+    def _dispatch_slice(self, wire, qlens, n, cap):
         kind, outs, padded = self._device_outputs(wire, qlens, cap)
         return (kind, n, wire, qlens, *self._to_host(*outs), padded)
 
     def _digests(self, batches, cap: int) -> torch.Tensor:
         """int64[len(batches)] on the device: per batch, the sum of every
-        output its dispatch hands the host."""
+        output its dispatch hands the host (over its slices, with a mesh)."""
         digests = []
         for batch in batches:
-            wire, qlens, _ = self._wire_of(batch)
-            outs = self._device_outputs(wire, qlens, cap)[1]
-            digests.append(torch.stack([o.to(torch.int64).sum() for o in outs]).sum())
+            total = torch.zeros((), dtype=torch.int64, device=self.device)
+            for eng, w, q, _ in self._slices(*self._wire_of(batch)):
+                outs = eng._device_outputs(w, q, cap)[1]
+                total = total + torch.stack([o.to(torch.int64).sum() for o in outs]).sum().to(self.device)
+            digests.append(total)
         return torch.stack(digests)
 
     def device_sustained_qps(self, batches, *, cap: int = 8, trials: int = 3) -> float:
@@ -355,13 +446,27 @@ class FmQueryEngine:
             for length in query_lens:
                 for letter in letters:
                     wire, qlens = self.encode_queries([letter * max(1, length)] * max(1, b))
-                    qt, ql, flags = self._upload(wire, qlens)
-                    count_batch_kernel_t(self.device_index, qt, ql, **flags)
-                    self._device_outputs(wire, qlens, cap)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                    for eng, w, q, _ in self._slices(wire, qlens, wire.shape[0]):
+                        qt, ql, flags = eng._upload(w, q)
+                        count_batch_kernel_t(eng.device_index, qt, ql, **flags)
+                        eng._device_outputs(w, q, cap)
+        for eng in self._engines():
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
 
-    def _assemble(self, kind, n, wire, qlens, hosts, event, batch, cap):
+    def _assemble(self, parts: list, cap):
+        """The slices' results of one dispatched batch, merged in query
+        order."""
+        out = [eng._assemble_slice(*item, cap) for eng, item in parts]
+        if len(out) == 1:
+            return out[0]
+        offsets, total = [np.zeros(1, dtype=np.int64)], 0
+        for o in out:
+            offsets.append(o[3][1:] + total)
+            total += int(o[3][-1])
+        return (*(np.concatenate([o[i] for o in out]) for i in range(3)), np.concatenate(offsets))
+
+    def _assemble_slice(self, kind, n, wire, qlens, hosts, event, batch, cap):
         if event is not None:
             event.synchronize()
         arrays = [h.numpy() for h in hosts]

@@ -34,7 +34,16 @@ group of blocks) and 64-bit values: ``occ_pair_wide`` (int64 ranks),
 ``backstep_wide`` (int64 step and whole mark rank), ``marked_walk_wide``
 (int64 SA values) and ``sampled_walk_wide`` / ``sampled_walk_ranges_wide``
 (64-bit rows, steps and SA values; a 64-bit quotient for an sa_ratio that is
-no power of two).  Each keeps its plain version beside it, in int64.
+no power of two), and ``occ_wide`` (int64 ranks: the device k-mer build of a
+wide index).  Each keeps its plain version beside it, in int64.
+
+The range-sharded engine (parallel/sharding.py, Mode B) runs two shard
+variants, each its narrow twin's template instantiated over one shard's
+window of blocks: ``occ_pair_shard`` and ``backstep_shard`` take the
+shard's rows, the global index of its first block and the block count of
+the whole table; a request whose (clamped) block lies outside the window
+gives 0, an owned one the full value, so the sum over the shards equals
+the narrow kernel on the whole table.
 
 Tables are int32 tensors holding uint32 bit patterns; positions are int64;
 outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``), but
@@ -173,6 +182,15 @@ def _lib():
             lib.awry_sampled_walk_wide.argtypes = [*wide_walk, p, i64, p, p, p]
             lib.awry_sampled_walk_ranges_wide.restype = i32
             lib.awry_sampled_walk_ranges_wide.argtypes = [*wide_walk, p, p, i64, i32, p, p, p]
+            lib.awry_occ_wide.restype = i32
+            lib.awry_occ_wide.argtypes = [i32, p, i64, i32, i32, i32, p, p, i32, p, p, i64, p, p]
+            # The shard variants: the shard's rows, local, first and total
+            # block counts, then the narrow twin's arguments.
+            window = [i32, p, i64, i64, i64, i32, i32]
+            lib.awry_occ_pair_shard.restype = i32
+            lib.awry_occ_pair_shard.argtypes = [*window, i32, p, p, p, p, i64, p, p, p]
+            lib.awry_backstep_shard.restype = i32
+            lib.awry_backstep_shard.argtypes = [*window, p, p, p, i32, i32, p, i64, p, p, p]
             _lib_handle = lib
         return _lib_handle
 
@@ -804,6 +822,36 @@ def occ_pair_wide(blocks, bases: WideBases, pos_a, pos_b, sym, codes, nplanes: i
 occ_pair_wide.launches = 0
 
 
+def occ_wide_plain(blocks, bases: WideBases, pos, sym, codes, nplanes: int) -> torch.Tensor:
+    """Plain version of occ_wide: _occ_plain plus the group base, int64."""
+    s = sym.clamp(0, codes.shape[0] - 1)
+    p, rows = _fetch_rows(blocks, pos)
+    return _occ_rows(rows, p, s, codes, nplanes) + bases.milestones[p >> (8 + bases.shift), s.to(torch.int64)]
+
+
+def occ_wide(blocks, bases: WideBases, pos, sym, codes, nplanes: int) -> torch.Tensor:
+    """int64[R]: occ over a wide index's fused rows, whose milestones are
+    relative to their group (``bases``); positions may pass 2**32."""
+    if _on_cpu(blocks, bases.milestones, pos, sym, codes):
+        return occ_wide_plain(blocks, bases, pos, sym, codes, nplanes)
+    _check_rank_args("occ_wide", blocks, pos, sym, codes, nplanes)
+    _check_bases("occ_wide", blocks, bases, codes.shape[0], marks=False)
+    r = pos.shape[0]
+    out = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    if r:
+        rc = _lib().awry_occ_wide(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes, codes.shape[0],
+            codes.data_ptr(), bases.milestones.data_ptr(), bases.shift, pos.data_ptr(), sym.data_ptr(), r,
+            out.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "occ_wide")
+        occ_wide.launches += 1
+    return out
+
+
+occ_wide.launches = 0
+
+
 def backstep_wide_plain(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
                         ambiguity_idx: int):
     """Plain version of backstep_wide (gather + SWAR popcounts, int64)."""
@@ -959,3 +1007,110 @@ def sampled_walk_ranges_wide(blocks, bases: WideBases, starts, counts, cap: int,
         _launch_check(rc, "sampled_walk_ranges_wide")
         sampled_walk_wide.launches += 1
     return out
+
+
+# -- the shard variants ------------------------------------------------------------
+
+
+def _shard_window(kernel: str, blocks, first_block: int, total_blocks: int) -> None:
+    """The shard's rows are blocks [first_block, first_block + local) of a
+    table of total_blocks, all block indexes within 32 bits."""
+    local = blocks.shape[0]
+    if not (0 <= first_block and first_block + local <= total_blocks and 0 < total_blocks < 2**32):
+        raise ValueError(f"{kernel}: window of {local} blocks at {first_block} outside a table of {total_blocks}")
+
+
+def _owned(pos: torch.Tensor, first_block: int, local_blocks: int, total_blocks: int):
+    """(owned mask, position relative to the window, 0 where not owned) of
+    positions clamped into the whole table."""
+    p = pos.clamp(0, total_blocks * 256 - 1)
+    owned = ((p >> 8) >= first_block) & ((p >> 8) < first_block + local_blocks)
+    return owned, torch.where(owned, p - first_block * 256, 0)
+
+
+def occ_pair_shard_plain(blocks, first_block: int, total_blocks: int, pos_a, pos_b, sym, codes, nplanes: int):
+    """Plain version of occ_pair_shard: occ_pair_plain on the window's rows
+    where the clamped position's block is owned, 0 elsewhere."""
+    _shard_window("occ_pair_shard", blocks, first_block, total_blocks)
+    out = []
+    for pos in (pos_a, pos_b):
+        owned, local = _owned(pos, first_block, blocks.shape[0], total_blocks)
+        if not blocks.shape[0]:
+            out.append(torch.zeros(pos.shape, dtype=torch.int32, device=pos.device))
+            continue
+        occ = occ_plain(blocks, local, sym, codes, nplanes)
+        out.append(torch.where(owned, occ, 0))
+    return out[0], out[1]
+
+
+def occ_pair_shard(blocks, first_block: int, total_blocks: int, pos_a, pos_b, sym, codes, nplanes: int):
+    """(int32[R], int32[R]): occ_pair restricted to one shard's window.
+
+    blocks: int32[local_blocks, row_words], the fused rows of blocks
+    [first_block, first_block + local_blocks) of a table of total_blocks;
+    pos_a, pos_b: int64[R] global positions, clamped into the whole table;
+    an endpoint whose block the window holds gets its full Occ (milestones
+    count over the whole BWT), any other 0.  The rest as for occ_pair."""
+    _shard_window("occ_pair_shard", blocks, first_block, total_blocks)
+    if _on_cpu(blocks, pos_a, pos_b, sym, codes):
+        return occ_pair_shard_plain(blocks, first_block, total_blocks, pos_a, pos_b, sym, codes, nplanes)
+    _check("pos_a", pos_a, torch.int64, 1)
+    _check_rank_args("occ_pair_shard", blocks, pos_b, sym, codes, nplanes)
+    r = pos_a.shape[0]
+    if pos_b.shape[0] != r:
+        raise ValueError("occ_pair_shard: pos_a, pos_b and sym must have one length")
+    occ_a = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    occ_b = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    if r:
+        rc = _lib().awry_occ_pair_shard(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], first_block, total_blocks, blocks.shape[1],
+            nplanes, codes.shape[0], codes.data_ptr(), pos_a.data_ptr(), pos_b.data_ptr(), sym.data_ptr(), r,
+            occ_a.data_ptr(), occ_b.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "occ_pair_shard")
+        occ_pair_shard.launches += 1
+    return occ_a, occ_b
+
+
+occ_pair_shard.launches = 0
+
+
+def backstep_shard_plain(blocks, first_block: int, total_blocks: int, rows, prefix_sums, codes, c2i, nplanes: int,
+                         mark_offset: int, ambiguity_idx: int):
+    """Plain version of backstep_shard: backstep_plain on the window's rows
+    where the clamped row's block is owned, 0 in both outputs elsewhere."""
+    _shard_window("backstep_shard", blocks, first_block, total_blocks)
+    owned, local = _owned(rows, first_block, blocks.shape[0], total_blocks)
+    if not blocks.shape[0]:
+        return torch.zeros_like(rows), torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
+    stepped, mark = backstep_plain(blocks, local, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
+    return torch.where(owned, stepped, 0), torch.where(owned, mark, 0)
+
+
+def backstep_shard(blocks, first_block: int, total_blocks: int, rows, prefix_sums, codes, c2i, nplanes: int,
+                   mark_offset: int, ambiguity_idx: int):
+    """(int64[R], int32[R]): backstep restricted to one shard's window: the
+    LF-stepped row (0 for a sentinel row) and the packed mark from the
+    owner of each clamped row, 0 in both outputs from any other shard.
+    blocks, first_block, total_blocks as for occ_pair_shard; the rest as
+    for backstep."""
+    _shard_window("backstep_shard", blocks, first_block, total_blocks)
+    if _on_cpu(blocks, rows, prefix_sums, codes, c2i):
+        return backstep_shard_plain(blocks, first_block, total_blocks, rows, prefix_sums, codes, c2i, nplanes,
+                                    mark_offset, ambiguity_idx)
+    _check_walk_args("backstep_shard", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, mark_offset)
+    r = rows.shape[0]
+    stepped = torch.empty(r, dtype=torch.int64, device=blocks.device)
+    mark = torch.empty(r, dtype=torch.int32, device=blocks.device)
+    if r:
+        rc = _lib().awry_backstep_shard(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], first_block, total_blocks, blocks.shape[1],
+            nplanes, prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), mark_offset, ambiguity_idx,
+            rows.data_ptr(), r, stepped.data_ptr(), mark.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "backstep_shard")
+        backstep_shard.launches += 1
+    return stepped, mark
+
+
+backstep_shard.launches = 0

@@ -5,7 +5,8 @@ encoding symbol, and level l + 1 extends all base**l ranges of level l by
 every encoding symbol in range updates over the whole level.  Each chunk of
 a level ranks the concatenation ``[starts - 1, ends]`` of its updates with
 one ``rank.occurrence`` call, so the build is a batch of single ranks
-through the ``occ`` kernel.
+through the ``occ`` kernel (``occ_wide`` on a device index in the 64-bit
+layout, ops/wide.py: the ranks and ranges are int64 in either layout).
 
 Addressing matches the host tables (build/kmer_count.py): address = sum of
 dense(symbol at distance j from the k-mer end) * base**j, so entry

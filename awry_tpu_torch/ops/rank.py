@@ -6,9 +6,10 @@ The LF range update ranks both endpoints through the ``occ_pair`` kernel;
 a batch of single ranks (the device k-mer build) goes through ``occ``; one
 LF step of single rows with their mark bit and mark rank goes through the
 ``backstep`` kernel (the locate walk runs ``marked_walk``, ops/locate.py).
-On a wide index (ops/wide.py) the range update and the LF step take the
-kernels' wide variants, whose ranks are int64 already.  Positions, ranges
-and counts are int64; symbols int32.
+On a wide index (ops/wide.py) the range update, the single ranks and the LF
+step take the kernels' wide variants (``occ_pair_wide``, ``occ_wide``,
+``backstep_wide``), whose ranks are int64 already.  Positions, ranges and
+counts are int64; symbols int32.
 """
 
 from __future__ import annotations
@@ -21,26 +22,21 @@ from .device_index import FmDeviceIndex
 _FULL = 0xFFFFFFFF
 
 
-def _require_narrow(dev: FmDeviceIndex) -> None:
-    if dev.wide:
-        raise NotImplementedError(
-            "occ has no wide variant yet (ROADMAP Queue 1: an occ wide variant): a text of 2**32 symbols and "
-            "more takes its k-mer table from the host build"
-        )
-
-
 def occurrence_plain(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
     """Occ(pos, sym) as int64 by plain PyTorch (gather + SWAR popcount),
     whatever device the index lives on."""
-    _require_narrow(dev)
+    if dev.wide:
+        return kernels.occ_wide_plain(dev.blocks, dev.bases, pos, sym, dev.codes, dev.num_planes)
     s = sym.clamp(0, dev.alphabet.cardinality - 1)
     return kernels._occ_plain(dev.blocks, pos, s, dev.codes, dev.num_planes)
 
 
 def occurrence(dev: FmDeviceIndex, pos: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
-    """Occ(pos, sym) as int64 from one ``occ`` launch (its plain version for
-    CPU tensors).  Every lane is exact: the port has no coverage flags."""
-    _require_narrow(dev)
+    """Occ(pos, sym) as int64 from one ``occ`` launch (``occ_wide`` on a
+    wide index; the plain version for CPU tensors).  Every lane is exact:
+    the port has no coverage flags."""
+    if dev.wide:
+        return kernels.occ_wide(dev.blocks, dev.bases, pos, sym.to(torch.int32), dev.codes, dev.num_planes)
     occ = kernels.occ(dev.blocks, pos, sym.to(torch.int32), dev.codes, dev.num_planes)
     return occ.to(torch.int64) & _FULL
 

@@ -46,6 +46,7 @@ def search_ranges_t(
     no_sentinel: bool = False,
     seeded_floor: bool = False,
     skip_idle: bool = True,
+    update_fn=None,
 ):
     """Final (or step-``num_steps``) BWT ranges of a query batch.
 
@@ -57,6 +58,10 @@ def search_ranges_t(
     2), so the loop starts at k; otherwise steps with no live lane are
     skipped after a device->host check of the live mask, unless
     ``skip_idle`` is False (every step runs, masked, with no host sync).
+    ``update_fn``: ``(starts, ends, sym) -> (starts, ends)`` in place of
+    rank.update_range for the LF steps after the seed (the range-sharded
+    engine's collective step, parallel/sharding.py; the counterpart of the
+    JAX search's ``update_fn``).
 
     Returns (starts, ends) int64[B], inclusive; empty iff start > end.
     """
@@ -92,7 +97,10 @@ def search_ranges_t(
         active = (i >= steps_done) & (i < qlens) & (starts <= ends)
         if skip_idle and not seeded_floor and not bool(active.any()):
             continue
-        new_starts, new_ends = update_range(dev, starts, ends, qt[L - 1 - i])
+        if update_fn is None:
+            new_starts, new_ends = update_range(dev, starts, ends, qt[L - 1 - i])
+        else:
+            new_starts, new_ends = update_fn(starts, ends, qt[L - 1 - i])
         starts = torch.where(active, new_starts, starts)
         ends = torch.where(active, new_ends, ends)
 

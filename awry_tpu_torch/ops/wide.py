@@ -22,6 +22,11 @@ the k-mer table as uint32 bits; past 2**32 symbols they overflow.  Here:
   index's ``mark_milestones`` are uint32 and overflow past 2**32 marked rows.
 * The k-mer seed and the mark-1 SA read stay on ``window_read``, over the
   int64 tables' int32 words (a pair of int64 values is 4 words).
+* ``to_device_wide(index, device, minimal=True)`` ships only what a rank
+  reads (fused rows, bases, prefix sums, codes), as ``to_device(minimal=
+  True)`` does for the narrow layout: the device k-mer build
+  (ops/kmer.py, through ``occ_wide``), which ``load_awry`` of a file of
+  2**32 symbols and more runs.
 
 The reference's transposed blocks and flat uint64 side arrays work around
 XLA's tile padding and are not copied.  The wide index serves the classic
@@ -86,14 +91,16 @@ def join_words(words: torch.Tensor) -> torch.Tensor:
     return (words[:, 0].to(torch.int64) << 32) | (words[:, 1].to(torch.int64) & _FULL)
 
 
-def to_device_wide(index: FmIndexData, device=None) -> FmDeviceIndex:
+def to_device_wide(index: FmIndexData, device=None, *, minimal: bool = False) -> FmDeviceIndex:
     """Ship a host index of any length to ``device`` (None: the card, see
     resolve_device) in the 64-bit layout (module docstring): the classic
     path's tables, with ``bases`` set.  ``text_sampled_sa`` (with marks) or
     ``sampled_sa`` (without) and ``kmer_flat`` hold int64 values, the
     k-mer table as int32 words (entry a: words 4a .. 4a + 3 = start low,
     start high, end low, end high).  Groups of 2**GROUP_SHIFT blocks (read
-    at each call, so that tests can shrink them)."""
+    at each call, so that tests can shrink them).  ``minimal``: only the
+    fused rows, bases, prefix sums and codes (the other tables one-word
+    placeholders, kmer_len 0), for the device k-mer build."""
     device = resolve_device(device)
     group_shift = GROUP_SHIFT
 
@@ -102,23 +109,31 @@ def to_device_wide(index: FmIndexData, device=None) -> FmDeviceIndex:
 
     fused, ms_base, mark_base = build_wide_blocks(index, group_shift)
     placeholder = put(np.zeros(1, dtype=np.int64))
-    kmer = np.asarray(index.kmer_table).astype(np.int64).reshape(-1)
-    return FmDeviceIndex(
+    tables = dict(
         blocks=put(fused.view(np.int32)),
         prefix_sums=put(index.prefix_sums.astype(np.int64)),
-        kmer_flat=put(kmer.view(np.int32)),
-        text_packed=put(np.zeros(1, dtype=np.int32)),
-        text_sampled_sa=put(index.text_sampled_sa.astype(np.int64)) if index.has_marks else placeholder,
         seq_starts=put(index.seq_starts.astype(np.int64)),
         codes=put(index_to_code_table(index.alphabet).astype(np.int32)),
         c2i=put(code_to_index_table(index.alphabet).astype(np.int32)),
         dense=put(index_to_dense_table(index.alphabet).astype(np.int64)),
         alphabet=index.alphabet,
         bwt_len=int(index.bwt_len),
-        kmer_len=int(index.kmer_len),
         mark_ratio=int(index.resolved_mark_ratio),
         has_marks=index.has_marks,
         sa_ratio=int(index.sa_ratio),
-        sampled_sa=placeholder if index.has_marks else put(index.sampled_sa.astype(np.int64)),
         bases=WideBases(put(ms_base), put(mark_base), group_shift),
+    )
+    if minimal:
+        return FmDeviceIndex(
+            **tables, kmer_flat=put(np.zeros(1, dtype=np.int32)), text_packed=put(np.zeros(1, dtype=np.int32)),
+            text_sampled_sa=placeholder, sampled_sa=placeholder, kmer_len=0,
+        )
+    kmer = np.asarray(index.kmer_table).astype(np.int64).reshape(-1)
+    return FmDeviceIndex(
+        **tables,
+        kmer_flat=put(kmer.view(np.int32)),
+        text_packed=put(np.zeros(1, dtype=np.int32)),
+        text_sampled_sa=put(index.text_sampled_sa.astype(np.int64)) if index.has_marks else placeholder,
+        kmer_len=int(index.kmer_len),
+        sampled_sa=placeholder if index.has_marks else put(index.sampled_sa.astype(np.int64)),
     )

@@ -22,11 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    on its first batch (and the k-mer build's full chunk) against the plain
    version on the same inputs.  Then the 64-bit engine's variants
    (occ_pair_wide, backstep_wide, marked_walk_wide at marks 4 and 32,
-   sampled_walk_wide flat and range-fed at SA ratios 8 and 12) against
-   their plain versions on synthetic wide rows: nucleotide over 2**24 +
-   4096 blocks (2.7 GB; positions and rows past 2**32), amino over 2**20
-   blocks; group bases, prefix sums and SA values past 2**32, block edges
-   and the last row among the requests.
+   sampled_walk_wide flat and range-fed at SA ratios 8 and 12, occ_wide at
+   the k-mer build's full chunk on random positions and in the build's
+   sorted order) against their plain versions on synthetic wide rows:
+   nucleotide over 2**24 + 4096 blocks (2.7 GB; positions and rows past
+   2**32), amino over 2**20 blocks; group bases, prefix sums and SA values
+   past 2**32, block edges and the last row among the requests.
 4. chr1 path: a chr1-scale index (250 Mbp of seeded random ACGT, k-mer seed
    length 13, mark ratio 1, SA ratio 8) built by the port's builder,
    shipped to the card, then 4 batches of 524,288 30 bp reads drawn from
@@ -131,6 +132,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. Wide mark-less path (run right after phase 15): the .awry-loaded index
    of phase 14 in the 64-bit layout (sampled_walk_ranges_wide), phase 14's
    answers exactly; the report of phase 17 against phase 14's engine.
+   Then its k-mer table built in the 64-bit layout (to_device_wide(minimal
+   =True), every rank through occ_wide, launch counts from 0), equal to the
+   table load_awry derived; its first full-chunk call against the plain
+   version and the narrow occ on the same requests, timed beside them.
 19. Federation, the pan-genome shape (bench.py:139-141: 40 records, k = 11,
    mark 32, SA ratio 8, max_query_len 32, 30 bp reads, batches of 524,288,
    cap 2, 4 partitions), cut from 10.3 Gbp to 256 Mbp (40 records of 6.4
@@ -145,6 +150,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    report: queries/s, and each partition's marked_walk call of the first
    batch (mark 32) against its plain version, timed beside its bound, with
    its walk lengths (p50, p99, max).
+20. Multi-device serving (run right after phase 6, on phase 4's host index
+   and batches; 250 Mbp, k = 13, mark 1, SA ratio 8): Mode A,
+   FmQueryEngine(index, mesh=make_mesh(devices=[cuda:0] * 2)), one shipped
+   copy serving two data slots, through count_locate_stream; Mode B,
+   ShardedFmEngine over make_mesh(devices=[cuda:0] * 4, shard_size=4), the
+   fused rows in 4 shards (views of one copy), every rank step one
+   occ_pair_shard launch per shard and the locate walk the row-sampled walk
+   with one backstep_shard launch per shard and step, through
+   count_locate_arrays.  Each serves the batches with the launch counts
+   set to 0 just before and must give phase 4's answers exactly (counts,
+   offsets, every (record, local) in row order).  Every shard call of Mode
+   B's first batch is held exactly against its plain version, and each
+   step's sum of 4 against one narrow occ_pair / backstep launch.  Report:
+   queries/s end to end of both modes; each shard kernel's 4 calls of one
+   full step timed (L2 flushed) beside their bound, the plain version, the
+   narrow twin on the same requests and the collective step (launches, sum
+   and glue); Mode B's walk lengths (p50, p99, max) and time per step; the
+   CUDA device count and the mesh make_mesh() builds from it.
 
 Before each report's first timed site the engine's warmup() runs and the
 card's clocks are sampled (nvidia-smi), and again beside every timed site.
@@ -198,6 +221,8 @@ from awry_tpu_torch.ops import (
 )
 from awry_tpu_torch.ops.kmer import _level_chunk
 from awry_tpu_torch.ops.verify import SLOT_EXT, WIDE_CAP, unpack_verify_bundle, wide_groups
+from awry_tpu_torch.ops.wide import to_device_wide
+from awry_tpu_torch.parallel import ShardedFmEngine, make_mesh
 
 N_SYMBOLS = 250_000_000  # chr1 scale (bench.py chr1_250Mbp_dna)
 KMER_LEN = 13
@@ -233,13 +258,17 @@ L2_FLUSH_BYTES = 128 << 20  # > 2x the 50 MB L2
 KERNELS = ("window_read", "occ_pair", "backstep", "occ", "marked_walk", "sampled_walk")
 # The 64-bit engine's variants (texts of 2**32 symbols and more), each its
 # narrow twin's template instantiated over the group bases and 64-bit values.
-WIDE_KERNELS = ("occ_pair_wide", "backstep_wide", "marked_walk_wide", "sampled_walk_wide")
-ALL_KERNELS = KERNELS + WIDE_KERNELS
+WIDE_KERNELS = ("occ_pair_wide", "backstep_wide", "marked_walk_wide", "sampled_walk_wide", "occ_wide")
+# The range-sharded engine's variants (Mode B), each its narrow twin's
+# template instantiated over one shard's window of blocks.
+SHARD_KERNELS = ("occ_pair_shard", "backstep_shard")
+ALL_KERNELS = KERNELS + WIDE_KERNELS + SHARD_KERNELS
 SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS} | {
     "occ": "awry_tpu_torch/csrc/occ_pair.cu", "marked_walk": "awry_tpu_torch/csrc/backstep.cu",
     "sampled_walk": "awry_tpu_torch/csrc/backstep.cu", "occ_pair_wide": "awry_tpu_torch/csrc/occ_pair.cu",
     "backstep_wide": "awry_tpu_torch/csrc/backstep.cu", "marked_walk_wide": "awry_tpu_torch/csrc/backstep.cu",
-    "sampled_walk_wide": "awry_tpu_torch/csrc/backstep.cu",
+    "sampled_walk_wide": "awry_tpu_torch/csrc/backstep.cu", "occ_wide": "awry_tpu_torch/csrc/occ_pair.cu",
+    "occ_pair_shard": "awry_tpu_torch/csrc/occ_pair.cu", "backstep_shard": "awry_tpu_torch/csrc/backstep.cu",
 }
 REPLACES = {
     "window_read": "awry_tpu/ops/sweep.py:1036",  # _anchored_text_kernel
@@ -254,6 +283,13 @@ REPLACES = {
     "backstep_wide": "awry_tpu/ops/sweep.py:1123",
     "marked_walk_wide": "awry_tpu/ops/sweep.py:1123",
     "sampled_walk_wide": "awry_tpu/ops/locate.py:99",
+    "occ_wide": "awry_tpu/ops/sweep.py:1108",  # _occ_kernel_anchored at 64 bits (the k-mer build of a wide index)
+    # Mode B's per-shard paired sweep (sharding.py _sharded_update_fn:
+    # occurrence_sweep_pair, _occ_pair_kernel_anchored :1062 and
+    # _occ_pair_kernel :305) and its collective backstep (_sharded_backstep_fn,
+    # the Mode B counterpart of _backstep_kernel_anchored).
+    "occ_pair_shard": "awry_tpu/ops/sweep.py:1062",
+    "backstep_shard": "awry_tpu/ops/sweep.py:1123",
 }
 # The wrappers whose calls a path's first batch records: every kernel's, and
 # sampled_walk_ranges (the range-fed entry of sampled_walk, counted under it).
@@ -262,7 +298,8 @@ RECORDED = (*ALL_KERNELS, "sampled_walk_ranges", "sampled_walk_ranges_wide")
 REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2), "marked_walk": (1,),
                 "sampled_walk": (1,), "sampled_walk_ranges": (1, 2), "occ_pair_wide": (2, 3, 4),
                 "backstep_wide": (2,), "marked_walk_wide": (2,), "sampled_walk_wide": (2,),
-                "sampled_walk_ranges_wide": (2, 3)}
+                "sampled_walk_ranges_wide": (2, 3), "occ_wide": (2, 3), "occ_pair_shard": (3, 4, 5),
+                "backstep_shard": (3,)}
 WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for marked_walk
 
 # Phase 15: an E. coli-sized text (bench.py ecoli_4.6Mbp_dna) in two records,
@@ -515,6 +552,25 @@ def wide_kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
 
         check(f"occ_pair_wide:{name}", kernels.occ_pair_wide(blocks, bases, pos, pos_b, sym, codes, v),
               kernels.occ_pair_wide_plain(blocks, bases, pos, pos_b, sym, codes, v))
+        # occ_wide at the k-mer build's full chunk: random positions and
+        # symbols past the alphabet (the direct branch), then the build's
+        # order (4 sorted symbol runs per half, the second half 1-8 above
+        # the first: the staged branch), both across 2**32 on nucleotide.
+        chunk = 2 * _level_chunk(4, 4**KMER_LEN)
+        rnd_pos = torch.cat([edges, torch.randint(-1, top + 8, (chunk - edges.shape[0],), device=device,
+                                                  generator=gen)])
+        rnd_sym = torch.randint(-1, c + 1, (chunk,), dtype=torch.int32, device=device, generator=gen)
+        span = min(top, chunk // 8 * 32)
+        runs = (top - span + torch.randint(-1, span, (4, chunk // 8), device=device, generator=gen)).sort(dim=1)
+        runs = runs.values.reshape(-1)
+        run_sym = torch.randint(1, c, (4,), dtype=torch.int32, device=device, generator=gen).sort().values
+        run_sym = run_sym.repeat_interleave(chunk // 8)
+        sorted_pos = torch.cat([runs, runs + 1 + torch.randint(0, 8, runs.shape, device=device, generator=gen)])
+        for key, (p, sy) in ((f"occ_wide:{name}", (rnd_pos, rnd_sym)),
+                             (f"occ_wide:{name}:sorted", (sorted_pos, torch.cat([run_sym, run_sym])))):
+            check(key, kernels.occ_wide(blocks, bases, p, sy, codes, v),
+                  kernels.occ_wide_plain(blocks, bases, p, sy, codes, v), requests=chunk)
+        del rnd_pos, rnd_sym, runs, run_sym, sorted_pos
         args = (prefix, codes, c2i, v, v * 8 + c, alphabet.ambiguity_idx)
         check(f"backstep_wide:{name}", kernels.backstep_wide(blocks, bases, pos, *args),
               kernels.backstep_wide_plain(blocks, bases, pos, *args))
@@ -621,8 +677,7 @@ def chr1_path(device: torch.device, rng: np.random.Generator) -> dict:
     )
     build_s = time.perf_counter() - t0
     log(f"host index build seconds: {build_s:.3f}")
-    engine, ship_s = ship(index, device)
-    del index
+    engine, ship_s = ship(index, device)  # the host index stays for phase 20's multi-device engines
 
     # Reads drawn from the text (each batch keeps its start positions), and
     # a last batch of random reads with a few drawn ones.
@@ -634,7 +689,7 @@ def chr1_path(device: torch.device, rng: np.random.Generator) -> dict:
     run = serve(engine, batches, device)
     run.update({
         "text_np": text_np, "text": text, "engine": engine, "build_s": build_s, "ship_s": ship_s,
-        "starts": starts, "tail_starts": tail_starts, "random_reads": rnd, "batches": batches,
+        "starts": starts, "tail_starts": tail_starts, "random_reads": rnd, "batches": batches, "index": index,
     })
     return run
 
@@ -1957,6 +2012,291 @@ def federation_report(run: dict, device: torch.device) -> dict:
             "queries_per_s": qps, "launches": run["launches"], "sites": rows, "per_kernel": {"marked_walk": agg},
             "checked_vs_plain": checked, "stats": stats, "edge_reads": run["edge_reads"]}
 
+# -- phase 18's wide k-mer build, and phase 20: multi-device serving ---------------
+
+
+def same_arrays(a, b) -> bool:
+    """Two (counts, seq_idx, local, offsets) results are equal array by
+    array: the same hits in the same (BWT-row) order."""
+    return all(np.array_equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def wide_kmer_build(index, device: torch.device) -> dict:
+    """Phase 18's k-mer build in the 64-bit layout, launch counts from 0:
+    the .awry index's minimal wide ship (to_device_wide(minimal=True)), every
+    rank through occ_wide, the table equal to the one load_awry derived.
+    A second build records its first full-chunk call: against its plain
+    version and against occ on
+    the narrow minimal ship's rows (the same values), then timed (L2 flushed,
+    and not: the build's rows stay in L2 between launches) beside that twin,
+    the plain version and the bound."""
+    full = 2 * _level_chunk(4, 4**KMER_LEN)
+    calls: list = []
+    wide_min = to_device_wide(index, device, minimal=True)
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    table = populate_kmer_table_device(wide_min, index.kmer_len)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_launches("wide k-mer build", launches, ("occ_wide",))
+    if launches["occ"]:
+        raise AssertionError("the wide k-mer build launched the narrow occ")
+    if not np.array_equal(table, index.kmer_table):
+        raise AssertionError("the k-mer table built in the 64-bit layout differs from the one load_awry derived")
+    # Once more, recording its first full-chunk call (a recorded call counts
+    # its launch on the recorder, not on the kernel's counter).
+    with recording_kernel_inputs(calls, lambda name, a: name == "occ_wide" and a[2].shape[0] == full and not calls):
+        again = populate_kmer_table_device(wide_min, index.kmer_len)
+    if not np.array_equal(again, table):
+        raise AssertionError("the recorded wide k-mer build differs from the first")
+    ((_, args),) = calls
+    blocks, bases, pos, sym, codes, nplanes = args
+    got = kernels.occ_wide(*args)
+    err = result_err(got, kernels.occ_wide_plain(*args))
+    if err != 0:
+        raise AssertionError(f"occ_wide disagrees with its plain version on a k-mer build call: max abs err {err}")
+    narrow = to_device(index, device, minimal=True)
+    twin = (narrow.blocks, pos, sym, codes, nplanes)
+    if not same_values(got, kernels.occ(*twin)):
+        raise AssertionError("occ_wide and its narrow twin occ disagree on a k-mer build call")
+    flush = make_flush(device)
+    nbytes, ops = occ_bound(*twin)
+    nbytes += pos.shape[0] * 4  # int64 ranks
+    row = {
+        "kernel": "occ_wide", "site": "k-mer build chunk", "requests": int(pos.shape[0]),
+        "ms": time_ms(lambda: kernels.occ_wide(*args), device, 20, flush),
+        "ms_l2_not_flushed": time_ms(lambda: kernels.occ_wide(*args), device, 20, None),
+        "narrow_twin_ms": time_ms(lambda: kernels.occ(*twin), device, 20, flush),
+        "narrow_twin_ms_l2_not_flushed": time_ms(lambda: kernels.occ(*twin), device, 20, None),
+        "plain_ms": time_ms(lambda: kernels.occ_wide_plain(*args), device, 3, flush),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "bytes": nbytes, "ops": ops,
+        "max_abs_err": err, "clocks": clocks(),
+    }
+    agg = {k: row[k] for k in ("ms", "narrow_twin_ms", "plain_ms", "bound_ms", "bytes", "ops")} | {"library_ms": None}
+    return {"build_s": build_s, "launches": launches, "sites": [row], "per_kernel": {"occ_wide": agg},
+            "checked_vs_plain": {"occ_wide": {"calls": 1, "max_abs_err": err}}}
+
+
+def occ_pair_shard_bound(blocks, first_block, total_blocks, pos_a, pos_b, sym, codes, nplanes) -> tuple[float, float]:
+    """(bytes, ops) of one occ_pair_shard call: the sectors of the endpoints
+    its window owns (as occ_pair_bound counts them) and every request's 20
+    B in and 8 B out; ops per owned endpoint as occ_pair's."""
+    spr = blocks.shape[1] // 8
+    nbits = total_blocks * 256
+    rows = torch.cat([pos_a.clamp(0, nbits - 1), pos_b.clamp(0, nbits - 1)]) >> 8
+    s2 = torch.cat([sym, sym]).to(torch.int64)
+    own = (rows >= first_block) & (rows < first_block + blocks.shape[0])
+    owned = int(own.sum())
+    rows, s2 = rows[own], s2[own]
+    plane = (rows[:, None] * spr + torch.arange(nplanes, device=rows.device)).reshape(-1)
+    sectors = torch.unique(torch.cat([plane, rows * spr + ((nplanes * 8 + s2) >> 3)])).numel()
+    return float(sectors * 32 + pos_a.shape[0] * 28), float(owned * (nplanes * 16 + 8 * 3 + 1))
+
+
+def backstep_shard_bound(blocks, first_block, total_blocks, rows, *walk) -> tuple[float, float]:
+    """(bytes, ops) of one backstep_shard call: backstep_bound over the rows
+    its window owns, and 20 B of I/O for every other row."""
+    p = rows.clamp(0, total_blocks * 256 - 1)
+    own = ((p >> 8) >= first_block) & ((p >> 8) < first_block + blocks.shape[0])
+    nbytes, ops = backstep_bound(blocks, p[own] - first_block * 256, *walk)
+    return nbytes + 20.0 * int((~own).sum()), ops
+
+
+@contextlib.contextmanager
+def checking_shard_calls(narrow, num_shards: int, full: dict):
+    """Hold every occ_pair_shard and backstep_shard call made inside the
+    block exactly against its plain version, and the sum of each step's
+    num_shards calls (made in shard order) against one narrow occ_pair or
+    backstep launch on the narrow device index ``narrow`` of the same host
+    index; keep the calls of the first step with ``full[name]`` requests for
+    the timing."""
+    real = {name: getattr(kernels, name) for name in SHARD_KERNELS}
+    state = {name: {"calls": 0, "steps": 0, "max_abs_err": 0, "sum": None, "kept": []} for name in SHARD_KERNELS}
+
+    def twin(name, args):
+        if name == "occ_pair_shard":
+            return kernels.occ_pair(narrow.blocks, *args[3:6], narrow.codes, narrow.num_planes)
+        return kernels.backstep(narrow.blocks, args[3], *args[4:])
+
+    def checker(name):
+        fn, plain, st = real[name], getattr(kernels, f"{name}_plain"), state[name]
+
+        def check(*args):
+            out = fn(*args)
+            err = result_err(out, plain(*args))
+            if err != 0:
+                raise AssertionError(f"{name} disagrees with its plain version on a Mode B call: max abs err {err}")
+            k = st["calls"] % num_shards
+            st["calls"] += 1
+            st["sum"] = out if k == 0 else tuple(a + o for a, o in zip(st["sum"], out, strict=True))
+            if k == num_shards - 1:
+                if result_err(st["sum"], twin(name, args)) != 0:
+                    raise AssertionError(f"a Mode B step's {name} calls do not sum to the narrow kernel's outputs")
+                st["steps"] += 1
+            if args[3].shape[0] == full[name] and (len(st["kept"]) < num_shards and (k == 0 or st["kept"])):
+                st["kept"].append(tuple(a.clone() if i in REQUEST_ARGS[name] else a for i, a in enumerate(args)))
+            return out
+
+        check.launches = 0
+        return check
+
+    for name in SHARD_KERNELS:
+        setattr(kernels, name, checker(name))
+    try:
+        yield state
+    finally:
+        for name in SHARD_KERNELS:
+            setattr(kernels, name, real[name])
+
+
+def walk_lengths(narrow, rows: torch.Tensor) -> dict:
+    """Steps of the row-sampled walk of each row other than row 0 (the slots
+    a query range fills), by narrow backstep launches: p50, p99, max, mean."""
+    pos = rows.clone()
+    steps = torch.zeros_like(rows)
+    live = pos % narrow.sa_ratio != 0
+    while bool(live.any()):
+        stepped, _ = kernels.backstep(narrow.blocks, pos, narrow.prefix_sums, narrow.codes, narrow.c2i,
+                                      narrow.num_planes, narrow.mark_offset, narrow.alphabet.ambiguity_idx)
+        pos = torch.where(live, stepped, pos)
+        steps += live.to(torch.int64)
+        live = pos % narrow.sa_ratio != 0
+    st = steps[rows != 0].double()
+    out = {"rows": int(st.numel()), "mean": float(st.mean())}
+    for q in (0.5, 0.99):
+        out[f"p{q * 100:g}"] = float(torch.quantile(st[: 1 << 24], q))
+    out["max"] = int(steps.max())
+    return out
+
+
+def multi_device_path(run: dict, device: torch.device) -> dict:
+    """Phase 20 over phase 4's host index and batches (module docstring):
+    Mode A (FmQueryEngine on a mesh of 2 data slots) and Mode B
+    (ShardedFmEngine, 4 shards), each giving phase 4's answers exactly."""
+    index, batches, results = run["index"], run["batches"], run["results"]
+    narrow = run["engine"].device_index
+    nq = sum(len(b) for b in batches)
+    out = {"device_count": torch.cuda.device_count(), "make_mesh_shape": make_mesh().shape}
+    log(f"  CUDA devices: {out['device_count']}; make_mesh() with no arguments: {out['make_mesh_shape']}")
+
+    # Mode A: one shipped copy for the two slots on this device.
+    t0 = time.perf_counter()
+    engine = FmQueryEngine(index, mesh=make_mesh(devices=[device] * 2))
+    torch.cuda.synchronize(device)
+    ship_s = time.perf_counter() - t0
+    if engine._data_shards != 2 or {id(e) for e in engine._slot_engines} != {id(engine)}:
+        raise AssertionError("the Mode A engine does not serve two slots from one shipped copy")
+    served = serve(engine, batches, device)
+    for b, (x, y) in enumerate(zip(results, served["results"], strict=True)):
+        if not same_arrays(x, y):
+            raise AssertionError(f"batch {b}: Mode A answers differently from phase 4")
+    require_launches("Mode A", served["launches"], ("window_read", "occ_pair"))
+    checked: dict = {}
+    for kind, args in served["calls"]:
+        err = result_err(getattr(kernels, kind)(*args), getattr(kernels, f"{kind}_plain")(*args))
+        if err != 0:
+            raise AssertionError(f"{kind} disagrees with its plain version on a Mode A call: max abs err {err}")
+        c = checked.setdefault(kind, {"calls": 0, "max_abs_err": 0})
+        c["calls"] += 1
+    mode_a = {"ship_s": ship_s, "serve_s": served["serve_s"], "queries": nq, "queries_per_s": nq / served["serve_s"],
+              "launches": served["launches"], "stats": dict(engine.stats), "checked_vs_plain": checked}
+    log(f"  Mode A (2 data slots on {device}): {mode_a['queries_per_s']:.1f} queries/s end to end (phase 4's "
+        f"answers); {json.dumps(mode_a)}")
+    engine.release()
+    del engine, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mode B: 4 shards of the fused rows, views of one shipped copy.
+    t0 = time.perf_counter()
+    engine = ShardedFmEngine(index, make_mesh(devices=[device] * 4, shard_size=4))
+    torch.cuda.synchronize(device)
+    ship_s = time.perf_counter() - t0
+    (shards,) = engine.shards
+    if len({sh.blocks.untyped_storage().data_ptr() for sh in shards}) != 1:
+        raise AssertionError("Mode B's shards on one device are not views of one tensor")
+    slot = engine._slots[0]
+    full = {"occ_pair_shard": len(batches[0]), "backstep_shard": len(batches[0]) * engine.locate_cap}
+    with checking_shard_calls(narrow, 4, full) as state:
+        first = engine.count_locate_arrays(batches[0])
+    if not same_arrays(first, results[0]):
+        raise AssertionError("batch 0: Mode B answers differently from phase 4")
+    checked = {name: {k: st[k] for k in ("calls", "steps", "max_abs_err")} for name, st in state.items()}
+    log(f"  Mode B first batch: every shard call equal to its plain version, every step's sum to the narrow "
+        f"kernel: {json.dumps(checked)}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = [engine.count_locate_arrays(b) for b in batches]
+    torch.cuda.synchronize(device)
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_launches("Mode B", launches, ("window_read", *SHARD_KERNELS))
+    if launches["occ_pair"] or launches["backstep"] or launches["sampled_walk"] or launches["marked_walk"]:
+        raise AssertionError(f"Mode B launched a narrow rank or walk kernel: {launches}")
+    for b, (x, y) in enumerate(zip(results, res, strict=True)):
+        if not same_arrays(x, y):
+            raise AssertionError(f"batch {b}: Mode B answers differently from phase 4")
+
+    # Each shard kernel's calls of one full step, timed (L2 flushed) beside
+    # the bound, the plain version, the narrow twin on the same requests and
+    # the collective step (the launches, the sum and the glue around them).
+    flush = make_flush(device)
+    rows_out, per_kernel = [], {}
+    lengths = walk_lengths(narrow, state["backstep_shard"]["kept"][0][3])
+    for name, bound_fn in (("occ_pair_shard", occ_pair_shard_bound), ("backstep_shard", backstep_shard_bound)):
+        kept = state[name]["kept"]
+        if len(kept) != 4:
+            raise AssertionError(f"{name}: no full step of 4 calls was kept ({len(kept)})")
+        fn, plain = getattr(kernels, name), getattr(kernels, f"{name}_plain")
+        agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "library_ms": None}
+        for i, args in enumerate(kept):
+            nbytes, ops = bound_fn(*args)
+            row = {"kernel": name, "site": f"shard {i} of a full step", "requests": int(args[3].shape[0]),
+                   "window_blocks": int(args[0].shape[0]), "ms": time_ms(lambda a=args: fn(*a), device, 20, flush),
+                   "plain_ms": time_ms(lambda a=args: plain(*a), device, 3, flush),
+                   "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "bytes": nbytes,
+                   "ops": ops, "max_abs_err": 0, "clocks": clocks()}
+            rows_out.append(row)
+            for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops"):
+                agg[k] += row[k]
+        args = kept[0]
+        if name == "occ_pair_shard":
+            pos_a, pos_b, sym = args[3:6]
+            agg["narrow_twin_ms"] = time_ms(lambda: kernels.occ_pair(narrow.blocks, pos_a, pos_b, sym, narrow.codes,
+                                                                     narrow.num_planes), device, 20, flush)
+            agg["collective_step_ms"] = time_ms(lambda: slot.update(pos_a + 1, pos_b, sym), device, 20, flush)
+            agg["narrow_step_ms"] = time_ms(lambda: rank.update_range(narrow, pos_a + 1, pos_b, sym), device, 20,
+                                            flush)
+        else:
+            walk_rows = args[3]
+            agg["narrow_twin_ms"] = time_ms(lambda: kernels.backstep(narrow.blocks, walk_rows, *args[4:]), device,
+                                            20, flush)
+            agg["collective_step_ms"] = time_ms(lambda: slot.backstep(walk_rows), device, 20, flush)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            slot.walk(walk_rows)
+            torch.cuda.synchronize(device)
+            walk_s = time.perf_counter() - t0
+            agg["walk_steps"] = lengths
+            agg["walk_ms"] = walk_s * 1e3
+            agg["walk_ms_per_step"] = walk_s * 1e3 / max(1, lengths["max"])
+        per_kernel[name] = agg
+        log(f"  Mode B {name}: {launches[name]} launches over {len(batches)} batches; one full step "
+            f"(4 launches) {json.dumps(agg)}")
+    for row in rows_out:
+        log("  " + json.dumps(row))
+    mode_b = {"ship_s": ship_s, "serve_s": serve_s, "queries": nq, "queries_per_s": nq / serve_s, "launches": launches,
+              "checked_vs_plain": checked, "sites": rows_out, "per_kernel": per_kernel,
+              "shard_blocks": [int(sh.blocks.shape[0]) for sh in shards]}
+    log(f"  Mode B (4 shards on {device}): {mode_b['queries_per_s']:.1f} queries/s end to end (phase 4's answers); "
+        f"walk steps of batch 0 {json.dumps(lengths)}")
+    del engine, state, slot, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mode_a": mode_a, "mode_b": mode_b, **out}
+
 
 def require_launches(name: str, launches: dict, kinds) -> None:
     for kind in kinds:
@@ -2013,6 +2353,14 @@ def main() -> int:
     paths["chr1"] = report("chr1", run, device) | {"checks": checks}
     paths["chr1"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
     sustained = {"chr1": run["engine"].device_sustained_qps(run["wires"])}  # phase 16, before the release
+    t0 = time.perf_counter()
+    log("phase 20 multi-device serving (chr1 scale, phase 4's index and batches):")
+    multi = multi_device_path(run, device)
+    paths["chr1_mode_a"], paths["chr1_mode_b"] = multi.pop("mode_a"), multi.pop("mode_b")
+    paths["chr1_mode_b"] |= multi
+    log(f"phase 20 multi-device: Mode A {paths['chr1_mode_a']['queries_per_s']:.1f}, Mode B "
+        f"{paths['chr1_mode_b']['queries_per_s']:.1f} queries/s, phase 4's answers exactly "
+        f"({time.perf_counter() - t0:.3f} s)")
     run["engine"].release()
     del run
     gc.collect()
@@ -2128,13 +2476,18 @@ def main() -> int:
         t0 = time.perf_counter()
         engine, ship_s = ship(markless, device, wide=True)
         wrun = wide_serve("mark-less", engine, ship_s, c20["batches"], mrun["results"], device)
-        del markless, engine
+        del engine
         log(f"phase 18 wide mark-less path (.awry): {wrun['queries']} queries in {wrun['serve_s']:.3f} s; "
             f"launches {wrun['launches']}; phase 14's answers ({time.perf_counter() - t0:.3f} s with the ship)")
         require_launches("wide mark-less", wrun["launches"], ("occ_pair_wide", "sampled_walk_wide"))
         if wrun["launches"]["sampled_walk"] or wrun["launches"]["occ_pair"]:
             raise AssertionError("the wide mark-less path launched a narrow rank or walk kernel")
         paths["markless_wide"] = wide_report("markless_wide", wrun, mrun["engine"].device_index, device)
+        t0 = time.perf_counter()
+        paths["markless_wide_kmer"] = wide_kmer_build(markless, device)
+        del markless
+        log(f"phase 18 wide k-mer build (the .awry index's table through occ_wide, equal to load_awry's): "
+            f"{json.dumps(paths['markless_wide_kmer'])} ({time.perf_counter() - t0:.3f} s)")
         wrun["engine"].release()
         del wrun
         mrun["engine"].release()
@@ -2175,10 +2528,14 @@ def main() -> int:
     # chr20-shaped k-mer build; launches add up over all paths.
     # The wide variants' times come from phases 17 (GRCh38-shaped) and 18
     # (mark-less), each beside its narrow twin on the same rows.
+    # occ_wide's from phase 18's wide k-mer build beside occ on the same
+    # requests; the shard variants' from phase 20's Mode B (one full step:
+    # the sums of its 4 launches), beside their narrow twins.
     times_from = {"window_read": "chr1", "occ_pair": "chr1", "backstep": "grch38", "occ": "chr20",
                   "marked_walk": "grch38", "sampled_walk": "markless", "occ_pair_wide": "grch38_wide",
                   "backstep_wide": "grch38_wide", "marked_walk_wide": "grch38_wide",
-                  "sampled_walk_wide": "markless_wide"}
+                  "sampled_walk_wide": "markless_wide", "occ_wide": "markless_wide_kmer",
+                  "occ_pair_shard": "chr1_mode_b", "backstep_shard": "chr1_mode_b"}
     kernels_line = []
     for name in ALL_KERNELS:
         path = times_from[name]
@@ -2197,7 +2554,8 @@ def main() -> int:
             "bound_by": "bytes" if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / INT32_OPS_PER_S else "operations",
             "library_ms": agg["library_ms"], "times_from_path": path,
             "launches_by_path": {p: v["launches"].get(name, 0) for p, v in paths.items() if "launches" in v},
-        } | ({"narrow_twin_ms": agg["narrow_twin_ms"]} if "narrow_twin_ms" in agg else {}))
+        } | {k: agg[k] for k in ("narrow_twin_ms", "collective_step_ms", "narrow_step_ms", "walk_ms_per_step")
+             if k in agg})
     total_s = time.perf_counter() - t_start
     log(f"total seconds: {total_s:.3f}")
     record = {

@@ -543,3 +543,111 @@ def test_partitioned_on_card(card):
         assert np.array_equal(a, b)
     assert np.array_equal(fed.count_batch(queries[:300]), on_cpu.count_batch(queries[:300]))
     assert {p.engine.device.type for p in fed.partitions} == {"cuda"}
+
+
+# -- occ_wide, the shard variants and multi-device serving -----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+def test_occ_wide_matches_plain(card, alphabet):
+    """occ_wide against its plain version past 2**32 (nucleotide over 2**24
+    + 300 blocks), on random positions (the direct branch) and on sorted
+    runs a few positions apart (the staged branch), symbols past the
+    alphabet among them; and against the narrow occ plus the group base."""
+    nb, shift = (2**24 + 300, 16) if alphabet is Alphabet.NUCLEOTIDE else (2**18, 4)
+    v, c = alphabet.num_planes, alphabet.cardinality
+    top = nb * 256
+    blocks, bases, _, codes, _ = _wide_tables(card, alphabet, nb, shift, 41)
+    rng = np.random.default_rng(42)
+    edges = [0, 255, 256, top - 1, top + 7, -3, 2**32 - 1, 2**32, 2**32 + 256]
+    random = np.concatenate([edges, rng.integers(0, top, size=20_000)]).astype(np.int64)
+    mid = min(2**32, top // 2)  # the sorted runs cross 2**32 on the nucleotide table
+    runs = np.sort(rng.integers(mid - 40_000, mid + 40_000, size=(4, 5000)), axis=1).reshape(-1)
+    for pos_np in (random, runs):
+        pos = torch.from_numpy(pos_np).to(card)
+        sym = torch.from_numpy(rng.integers(-1, c + 1, size=pos.shape[0]).astype(np.int32)).to(card)
+        n0 = kernels.occ_wide.launches
+        got = kernels.occ_wide(blocks, bases, pos, sym, codes, v)
+        assert kernels.occ_wide.launches == n0 + 1 and got.dtype == torch.int64
+        assert torch.equal(got, kernels.occ_wide_plain(blocks, bases, pos, sym, codes, v))
+        s = sym.clamp(0, c - 1).to(torch.int64)
+        p = pos.clamp(0, top - 1)
+        narrow = kernels.occ(blocks, pos, sym, codes, v).to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(got, narrow + bases.milestones[p >> (8 + shift), s])
+        if alphabet is Alphabet.NUCLEOTIDE:
+            assert int(got.max()) >= 2**32
+
+
+def _windows(nb, shards):
+    per = -(-nb // shards)
+    return [(min(i * per, nb), min((i + 1) * per, nb)) for i in range(shards)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+@pytest.mark.parametrize("shards", [1, 2, 3, 5])
+def test_shard_kernels_match_plain(card, alphabet, shards):
+    """occ_pair_shard and backstep_shard on views of one table equal their
+    plain versions, give 0 outside their window, and summed over the shards
+    equal one narrow occ_pair and backstep launch, with row 0, the last
+    row, block and shard edges, and positions below 0 and past the end."""
+    tdev, rng = _device_index(alphabet, 60_000, 43 + shards)
+    blocks = tdev.blocks.to(card)
+    nb = blocks.shape[0]
+    codes, c2i, prefix = tdev.codes.to(card), tdev.c2i.to(card), tdev.prefix_sums.to(card)
+    v, mo, amb = tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx
+    windows = _windows(nb, shards)
+    top = nb * 256
+    edges = [0, top - 1, top, top + 17, -1, -300, 255, 256]
+    edges += [e for lo, hi in windows for e in (lo * 256 - 1, lo * 256, hi * 256 - 1, hi * 256)]
+    pos = torch.from_numpy(np.concatenate([edges, rng.integers(0, top, size=20_000)]).astype(np.int64)).to(card)
+    pos_b = pos + torch.from_numpy(rng.integers(0, 9, size=pos.shape[0])).to(card)
+    sym = torch.from_numpy(rng.integers(-1, alphabet.cardinality + 1, size=pos.shape[0]).astype(np.int32)).to(card)
+    want_pair = kernels.occ_pair(blocks, pos, pos_b, sym, codes, v)
+    want_step = kernels.backstep(blocks, pos, prefix, codes, c2i, v, mo, amb)
+    sums = [torch.zeros_like(t) for t in (*want_pair, *want_step)]
+    for lo, hi in windows:
+        view = blocks[lo:hi]
+        n0, n1 = kernels.occ_pair_shard.launches, kernels.backstep_shard.launches
+        pair = kernels.occ_pair_shard(view, lo, nb, pos, pos_b, sym, codes, v)
+        step = kernels.backstep_shard(view, lo, nb, pos, prefix, codes, c2i, v, mo, amb)
+        assert kernels.occ_pair_shard.launches == n0 + 1 and kernels.backstep_shard.launches == n1 + 1
+        cpu = (view.cpu(), lo, nb)
+        plain_pair = kernels.occ_pair_shard_plain(*cpu, pos.cpu(), pos_b.cpu(), sym.cpu(), codes.cpu(), v)
+        plain_step = kernels.backstep_shard_plain(*cpu, pos.cpu(), prefix.cpu(), codes.cpu(), c2i.cpu(), v, mo, amb)
+        for got, want in zip((*pair, *step), (*plain_pair, *plain_step)):
+            assert torch.equal(got.cpu(), want)
+        for acc, got in zip(sums, (*pair, *step)):
+            acc += got
+    for acc, want in zip(sums, (*want_pair, *want_step)):
+        assert torch.equal(acc, want)
+
+
+@pytest.mark.cuda
+def test_multi_device_engines_on_card(card):
+    """ShardedFmEngine on ["cuda:0"] * 4 (Mode B, 4 shards; Mode A, 4 data
+    slots) and FmQueryEngine(mesh=["cuda:0"] * 2) give FmQueryEngine's
+    answers on the card, through the shard kernels in Mode B."""
+    from awry_tpu_torch.parallel import ShardedFmEngine, make_mesh
+
+    rng = np.random.default_rng(47)
+    seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=80_000))
+    index = build_from_records([("a", seq[:50_000]), ("b", seq[50_000:])],
+                               FmBuildArgs(lookup_table_kmer_len=6, locate_mark_ratio=1))
+    single = FmQueryEngine(index, device=card)
+    queries = [seq[s : s + 25] for s in rng.integers(0, len(seq) - 25, size=5000)] + [seq[10:14], b"ACNGT", b""]
+    want = single.count_locate_arrays(queries, cap=8)
+    n0 = (kernels.occ_pair_shard.launches, kernels.backstep_shard.launches)
+    mode_b = ShardedFmEngine(index, make_mesh(devices=[card] * 4, shard_size=4))
+    for got, w in zip(mode_b.count_locate_arrays(queries), want, strict=True):
+        assert np.array_equal(got, w)
+    assert kernels.occ_pair_shard.launches > n0[0] and kernels.backstep_shard.launches > n0[1]
+    assert np.array_equal(mode_b.count_batch(queries), want[0])
+    mode_a = ShardedFmEngine(index, make_mesh(devices=[card] * 4))
+    for got, w in zip(mode_a.count_locate_arrays(queries), want, strict=True):
+        assert np.array_equal(got, w)
+    mesh_engine = FmQueryEngine(index, mesh=make_mesh(devices=[card] * 2))
+    for got, w in zip(next(mesh_engine.count_locate_stream([queries], cap=8)), want, strict=True):
+        assert np.array_equal(got, w)
+    assert make_mesh().shape["data"] == torch.cuda.device_count()

@@ -142,9 +142,11 @@ def test_wide_facade_backstep_and_update_range(monkeypatch):
 
 
 def test_wide_refusals(monkeypatch, tmp_path):
-    """FmQueryEngine picks the wide layout exactly at bwt_len >= 2**32 (None),
-    to_device refuses such an index, and the device k-mer build and
-    load_awry of a file that long name the missing occ variant."""
+    """FmQueryEngine picks the wide layout exactly at bwt_len >= 2**32 (None)
+    and to_device refuses such an index for serving; the device k-mer build
+    ships it in the wide layout (to_device(minimal=True)), rank.occurrence
+    on a wide index equals the narrow one, and load_awry of a file that long
+    reaches the wide derivation."""
     jidx, _ = _index(n=600, mark=4)
     tidx = _to_port(jidx)
     path = str(tmp_path / "long.awry")
@@ -153,17 +155,50 @@ def test_wide_refusals(monkeypatch, tmp_path):
         f.seek(11 + 16)
         f.write((2**32 + 5).to_bytes(8, "little"))
         f.truncate(3 << 30)  # sparse: as long as the blocks such a file holds, so it reads as whole
-    with pytest.raises(NotImplementedError, match="occ wide variant"):
+    # load_awry's sections as its reader gives them for that header (the
+    # small index's arrays, so that no 3 GB are read), then the derivation:
+    # the minimal ship in the wide layout, ranked through occ_wide.
+    from awry_tpu_torch.io import awry_format
+
+    short = str(tmp_path / "short.awry")
+    pt.save_awry(tidx, short)
+    loaded = awry_format._read_index(short, False)
+    reads, derived = [], []
+
+    def read_index(p, strict):
+        reads.append(p)
+        return dataclasses.replace(loaded, bwt_len=2**32 + 5)
+
+    class Reached(Exception):
+        pass
+
+    def derive(dev, k):
+        derived.append((dev.wide, dev.bwt_len, k))
+        raise Reached
+
+    monkeypatch.setattr(awry_format, "_read_index", read_index)
+    monkeypatch.setattr(awry_format, "populate_kmer_table_device", derive)
+    with pytest.raises(Reached):
         pt.load_awry(path, device="cpu")
+    assert reads == [path] and derived == [(True, 2**32 + 5, tidx.kmer_len)]
+    monkeypatch.undo()
+
     assert not FmQueryEngine(tidx, device="cpu").wide
     big = dataclasses.replace(tidx, bwt_len=2**32)
     with pytest.raises(NotImplementedError, match="wide=True"):
         pt.ops.to_device(big, "cpu")
-    with pytest.raises(NotImplementedError, match="occ wide variant"):
-        pt.ops.to_device(big, "cpu", minimal=True)
-    with pytest.raises(NotImplementedError, match="occ wide variant"):
-        pt.ops.rank.occurrence(FmQueryEngine(tidx, device="cpu", wide=True).device_index,
-                               torch.zeros(1, dtype=torch.int64), torch.ones(1, dtype=torch.int32))
+    minimal = pt.ops.to_device(big, "cpu", minimal=True)
+    assert minimal.wide and minimal.kmer_len == 0 and minimal.bwt_len == 2**32
+    wide_dev = FmQueryEngine(tidx, device="cpu", wide=True).device_index
+    narrow_dev = FmQueryEngine(tidx, device="cpu").device_index
+    rng = np.random.default_rng(4)
+    pos = torch.from_numpy(np.concatenate([[-1, 0, tidx.bwt_len - 1, tidx.bwt_len + 3],
+                                           rng.integers(0, tidx.bwt_len, size=60)]).astype(np.int64))
+    sym = torch.from_numpy(rng.integers(0, 5, size=pos.shape[0]).astype(np.int32))
+    got = pt.ops.rank.occurrence(wide_dev, pos, sym)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, pt.ops.rank.occurrence(narrow_dev, pos, sym))
+    assert torch.equal(pt.ops.rank.occurrence_plain(wide_dev, pos, sym), got)
     # The choice, on an index that only claims 2**32 symbols: the layout is
     # shipped from the real one.
     shipped = []
@@ -176,6 +211,23 @@ def test_wide_refusals(monkeypatch, tmp_path):
     assert FmQueryEngine(big, device="cpu").wide and shipped == [2**32]
     with pytest.raises(NotImplementedError, match="wide=True"):
         FmQueryEngine(big, device="cpu", wide=False)
+
+
+@pytest.mark.parametrize("alphabet", ["NUCLEOTIDE", "AMINO"])
+def test_wide_minimal_kmer_build(alphabet, monkeypatch):
+    """The device k-mer build on the wide layout's minimal ship (groups of 2
+    blocks, so the bases take part) equals the narrow layout's and the JAX
+    package's host table."""
+    monkeypatch.setattr(wide_mod, "GROUP_SHIFT", 1)
+    k = 4 if alphabet == "NUCLEOTIDE" else 2
+    jidx, _ = _index(alphabet, n=2500, mark=4, k=k, seed=19)
+    tidx = _to_port(jidx)
+    wide_dev = wide_mod.to_device_wide(tidx, "cpu", minimal=True)
+    assert wide_dev.wide and wide_dev.kmer_len == 0 and wide_dev.bases.milestones.shape[0] > 1
+    got = pt.ops.populate_kmer_table_device(wide_dev, k)
+    narrow = pt.ops.populate_kmer_table_device(pt.ops.to_device(tidx, "cpu", minimal=True), k)
+    np.testing.assert_array_equal(got, narrow)
+    np.testing.assert_array_equal(got, he.populate_kmer_table(jidx))
 
 
 # -- the plain versions past 2**32, against Python integers -----------------------
@@ -289,6 +341,31 @@ def test_wide_plain_versions_past_2_32(alphabet):
                     p, steps = step, steps + 1
                 t = int(sa[min(max(rank, 0), sa.shape[0] - 1)]) + steps
                 assert int(got[i]) == (t - bwt_len if t >= bwt_len else t)
+
+
+@pytest.mark.parametrize("alphabet", ["NUCLEOTIDE", "AMINO"])
+def test_occ_wide_plain_past_2_32(alphabet):
+    """occ_wide_plain on a table of 2**24 + 300 blocks (positions past
+    2**32, block edges, the last row and positions past either end) and on
+    40 distinct rows in groups of 2 blocks, symbols past the alphabet among
+    them, against Python integers; it agrees with occ_pair_wide_plain."""
+    a = pt.Alphabet[alphabet]
+    nplanes, card = a.num_planes, a.cardinality
+    rng = np.random.default_rng(17)
+    for nb, distinct, shift in ((2**24 + 300, 1, 16), (40, 40, 1)):
+        blocks, bases, _, codes, _ = _synthetic(a, nb, distinct, shift, 18)
+        top = nb * 256
+        pos = np.concatenate([[0, 255, 256, top - 1, top + 9, -2, 2**32 - 1, 2**32, 2**32 + 256],
+                              rng.integers(0, top, size=40)]).astype(np.int64)
+        pos = torch.from_numpy(np.clip(pos, -2, top + 9))
+        sym = torch.from_numpy(rng.integers(-1, card + 1, size=pos.shape[0]).astype(np.int32))
+        got = kernels.occ_wide_plain(blocks, bases, pos, sym, codes, nplanes)
+        assert got.dtype == torch.int64
+        for i in range(pos.shape[0]):
+            s = min(max(int(sym[i]), 0), card - 1)
+            assert int(got[i]) == _ref_occ(blocks, bases, codes, nplanes, int(pos[i]), s)
+        assert torch.equal(got, kernels.occ_pair_wide_plain(blocks, bases, pos, pos, sym, codes, nplanes)[0])
+        assert int(got.max()) >= 2**32
 
 
 @pytest.mark.parametrize("sa_ratio", [8, 12])
