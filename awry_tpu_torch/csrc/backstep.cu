@@ -19,6 +19,9 @@
 // row 0 (sampled: its SA value), which is what the flat walk of the
 // classic path's padded rows wrote there.
 //
+// sampled_walk_shard: the part of each row's sampled walk that one shard's
+// window of blocks holds (below), for the range-sharded index.
+//
 // backstep replaces awry_tpu/ops/sweep.py:_backstep_kernel_anchored as
 // backstep_mark_sweep runs it (one visit) and its blocked twin
 // _backstep_kernel; marked_walk replaces the same kernel as
@@ -125,23 +128,30 @@
 // exact only for 32-bit rows).  Bound: as the narrow twins, with 8-byte SA
 // values and wider outputs.
 //
-// backstep_shard is the range-sharded index's LF step (Mode B,
-// awry_tpu_torch/parallel/sharding.py): a third instantiation of backstep's
-// template over one shard's rows, blocks [first_block, first_block +
-// local_blocks) of total_blocks.  A row is clamped into the whole table as
-// the narrow kernel clamps it; a row whose block lies outside the window
-// writes 0 to both outputs and reads nothing, an owned row is read from the
-// window.  Milestones and mark milestones count over the whole BWT, so the
-// sum over the shards equals backstep on the whole table.  It replaces the
-// collective backstep of Mode B (awry_tpu/parallel/sharding.py
-// _sharded_backstep_fn: plain gathers of the local rows and two psums over
-// the shard axis, the Mode B counterpart of _backstep_kernel_anchored,
-// sweep.py:1123).  Bound: the owned rows' sectors, and every row's 20 B of
-// I/O.
+// sampled_walk_shard is the range-sharded index's walk (Mode B,
+// awry_tpu_torch/parallel/sharding.py): the sampled walk's template fed by
+// one shard's window, blocks [first_block, first_block + local_blocks) of
+// the table, over a round's rows and steps, walked in place (kShard).  A
+// tile's lane takes its row only when the row is unsampled, its block lies
+// in the window and its steps are below bwt_len, and walks it until the row
+// is sampled, an LF step lands outside the window, or the walk has taken
+// bwt_len steps; it writes back the row and the steps in all.  Other rows
+// stay as they are, and the sampled SA (on the slot's device only) is never
+// read.  The engine walks the live rows in rounds: a compaction, then
+// passes over the shards, one launch per shard and pass, the shards of a
+// device in order on the same arrays, so a row crosses into later windows
+// within a pass and goes on in the next.  It replaces Mode B's collective
+// LF walk (awry_tpu/parallel/sharding.py _sharded_backstep_fn: plain
+// gathers of the local rows and two psums over the shard axis, under
+// lf_walk's while loop), which has no Pallas kernel.  Bound: as
+// sampled_walk's, over the launch's live row-steps in the window (the
+// sectors they read), 8 B in per row (its row), 8 B more in (its steps)
+// and 16 B out per walked row.
 //
 // ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 46 / 60,
 // backstep_wide 64 / 72; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
-// range-fed sampled walk 65 / 78, wide 64 / 80.
+// range-fed sampled walk 65 / 78, wide 64 / 80; the flat-row walk 64 / 77,
+// wide 64 / 79; sampled_walk_shard 63 / 76.  No spills.
 
 #include <cuda_runtime.h>
 
@@ -344,33 +354,16 @@ __device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, Mar
   return (pick(marks, r.word) >> r.bit) & 1u;
 }
 
-// backstep's variants: the whole table (kNarrow), a 64-bit index (kWide),
-// one shard's window (kShard: t.blocks holds the rows of blocks
-// [first_block, first_block + local_blocks), t.nbits covers the whole
-// table, and a row outside the window writes 0 to both outputs).
-enum class Variant { kNarrow, kWide, kShard };
-
-// mark: (mark_rank << 1) | mark_bit as uint32 (narrow and shard: 31 bits of
-// the rank) or int64 (wide).
-template <int V, Variant kVar>
-__global__ void backstep_kernel(const WalkTables t, int mark_offset, uint32_t first_block, uint32_t local_blocks,
-                                const int64_t* __restrict__ rows, int64_t n, int64_t* __restrict__ stepped,
-                                MarkRank<kVar == Variant::kWide>* __restrict__ mark) {
-  constexpr bool kWide = kVar == Variant::kWide;
+// mark: (mark_rank << 1) | mark_bit as uint32 (narrow: 31 bits of the
+// rank) or int64 (wide).
+template <int V, bool kWide>
+__global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64_t* __restrict__ rows, int64_t n,
+                                int64_t* __restrict__ stepped, MarkRank<kWide>* __restrict__ mark) {
   __shared__ CodeStep tab[1 << V];
   load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
-  if constexpr (kVar == Variant::kShard) {
-    const uint32_t local = r.blk - first_block;  // wraps below the window
-    if (local >= local_blocks) {
-      stepped[i] = 0;
-      mark[i] = 0;
-      return;
-    }
-    r.row = t.blocks + (int64_t)local * t.row_words;
-  }
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
   RowWords<V> x;
   load_row(r, x);
   MarkRank<kWide> mark_rank;
@@ -462,6 +455,21 @@ struct RowSampling64 {
 template <bool kWide>
 using Sampling = std::conditional_t<kWide, RowSampling64, RowSampling>;
 
+// What feeds a sampled walk's lanes: query ranges into [nq, cap] slots
+// (kRanges), flat rows (kRows), or the rows of one shard's walk, walked in
+// place (kShard).
+enum class Feed { kRanges, kRows, kShard };
+
+// sampled_walk_shard's window, blocks [first_block, first_block +
+// local_blocks) of the table, and the round's rows and steps it walks in
+// place (int64 [nq] each).
+struct ShardWalk {
+  int64_t* rows;
+  int64_t* steps;
+  uint32_t first_block;
+  uint32_t local_blocks;
+};
+
 // A walk's text position: its final row's SA value plus its steps, less
 // bwt_len when that reaches it.
 __device__ __forceinline__ int64_t text_pos_of(int64_t sa, int64_t steps, int64_t bwt_len) {
@@ -511,49 +519,76 @@ __device__ __forceinline__ bool sampled_step(const WalkTables& t, const Sampling
   return true;
 }
 
+// One LF step of a shard's walk (sampled_walk_shard) at an owned, unsampled
+// row: one round trip, its row read from the window.  Returns whether the
+// walk leaves the shard: the new row is sampled, lies outside the window,
+// or the walk has taken bwt_len steps in all.
+template <int V>
+__device__ __forceinline__ bool shard_step(const WalkTables& t, const RowSampling& smp, const CodeStep* tab,
+                                           const ShardWalk& w, uint32_t& pos, uint32_t& steps) {
+  RowAt r = row_at(t.blocks, t.nbits, t.row_words, pos);
+  r.row = t.blocks + (int64_t)(r.blk - w.first_block) * t.row_words;
+  RowWords<V> x;
+  load_row<V, true>(r, x);
+  pos = clamp_row(lf_of<V>(x, r, tab, t), t.bwt_len);
+  ++steps;
+  return smp.sampled(pos) || (pos >> 8) - w.first_block >= w.local_blocks || (int64_t)steps >= t.bwt_len;
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// A tile of 32 queries, one per lane: the lane's query start and its live
-// slots, min(count, cap) (one row each for the flat-row entry).
+// A tile of 32 queries, one per lane: the lane's query start, its live
+// slots, min(count, cap) (one row each for the flat-row entry; for a shard,
+// one if the row is live in its window), and a shard row's steps so far.
 struct TileQuery {
   int64_t start;
   uint32_t live;
+  uint32_t steps;
 };
 
-template <bool kRows>
+template <Feed kFeed, class Smp>
 __device__ __forceinline__ TileQuery tile_query(int64_t tile, const int64_t* __restrict__ starts,
                                                 const int64_t* __restrict__ counts, int64_t nq, int cap,
-                                                unsigned lane) {
+                                                unsigned lane, const ShardWalk& w, const Smp& smp,
+                                                int64_t bwt_len) {
   const int64_t q = tile * 32 + lane;
-  if (q >= nq) return {0, 0};
-  if (kRows) return {starts[q], 1};
+  if (q >= nq) return {0, 0, 0};
+  if constexpr (kFeed == Feed::kRows) return {starts[q], 1, 0};
+  if constexpr (kFeed == Feed::kShard) {
+    const uint32_t row = clamp_row(w.rows[q], bwt_len);
+    const int64_t steps = w.steps[q];
+    const bool live = !smp.sampled(row) && (row >> 8) - w.first_block < w.local_blocks && steps < bwt_len;
+    return {row, live ? 1u : 0u, (uint32_t)steps};
+  }
   const int64_t c = counts[q];
-  return {starts[q], (uint32_t)(c < 0 ? 0 : (c > cap ? cap : c))};
+  return {starts[q], (uint32_t)(c < 0 ? 0 : (c > cap ? cap : c)), 0};
 }
 
 // The sampled walks of nq queries' live slots into out[nq, cap] (flat rows:
-// kRows, starts = rows, cap = 1), by persistent warps that refill lanes as
+// kRows, starts = rows, cap = 1; a shard's rows: kShard, the rows and steps
+// of w walked in place, cap = 1), by persistent warps that refill lanes as
 // walks end (the head of this file).  cursor: one 64-bit counter, zero.
-template <int V, bool kRows, bool kWide>
+template <int V, Feed kFeed, bool kWide>
 __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
     const WalkTables t, const Sampling<kWide> smp, const int64_t* __restrict__ starts,
     const int64_t* __restrict__ counts, int64_t nq, int cap, unsigned long long* __restrict__ cursor,
-    int64_t* __restrict__ out) {
+    int64_t* __restrict__ out, const ShardWalk w) {
+  constexpr bool kRanges = kFeed == Feed::kRanges;
   __shared__ CodeStep tab[1 << V];
   load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
   const int64_t ntiles = (nq + 31) >> 5;
   // An idle slot's value: the walk of row 0, which is sampled.
-  const int64_t idle = kRows ? 0 : text_pos_of(sa_at<kWide>(t, 0), 0, t.bwt_len);
+  const int64_t idle = kRanges ? text_pos_of(sa_at<kWide>(t, 0), 0, t.bwt_len) : 0;
 
   // The next tile (claimed, its queries loading) and the claim of the one
   // after it run a tile ahead of the tile being handed out.
   unsigned long long claim = 0;
   if (lane == 0) claim = atomicAdd(cursor, 1ull);
   int64_t next_tile = (int64_t)__shfl_sync(kFull, claim, 0);
-  TileQuery next_q = tile_query<kRows>(next_tile, starts, counts, nq, cap, lane);
+  TileQuery next_q = tile_query<kFeed>(next_tile, starts, counts, nq, cap, lane, w, smp, t.bwt_len);
   if (lane == 0) claim = atomicAdd(cursor, 1ull);
 
   int64_t tile = 0;
@@ -583,7 +618,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
         }
         tile_live = __shfl_sync(kFull, incl, 31);
         handed = 0;
-        if (!kRows) {
+        if (kRanges) {
           // The tile's idle slots, in order: a coalesced pass of cap stores per lane.
           for (int s = lane; s < 32 * cap; s += 32) {
             const unsigned ql = (unsigned)(s / cap);
@@ -592,7 +627,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
           }
         }
         next_tile = (int64_t)__shfl_sync(kFull, claim, 0);
-        next_q = tile_query<kRows>(next_tile, starts, counts, nq, cap, lane);
+        next_q = tile_query<kFeed>(next_tile, starts, counts, nq, cap, lane, w, smp, t.bwt_len);
         if (lane == 0) claim = atomicAdd(cursor, 1ull);
         continue;
       }
@@ -606,10 +641,12 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
       }
       const uint32_t before = __shfl_sync(kFull, incl - cur.live, q);
       const int64_t start = __shfl_sync(kFull, cur.start, q);
+      uint32_t steps0 = 0;
+      if constexpr (kFeed == Feed::kShard) steps0 = __shfl_sync(kFull, cur.steps, q);
       if (!walking && want < tile_live) {
         const uint32_t j = want - before;
         pos = clamp_row<WalkRow<kWide>>(start + j, t.bwt_len);
-        steps = 0;
+        steps = steps0;
         slot = (tile * 32 + q) * cap + j;
         walking = true;
       }
@@ -617,7 +654,15 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
       free_lanes = __ballot_sync(kFull, !walking);
     }
     if (!__any_sync(kFull, walking)) break;
-    if (walking && sampled_step<V, kWide>(t, smp, tab, pos, steps, out + slot)) walking = false;
+    if constexpr (kFeed == Feed::kShard) {
+      if (walking && shard_step<V>(t, smp, tab, w, pos, steps)) {
+        w.rows[slot] = pos;
+        w.steps[slot] = steps;
+        walking = false;
+      }
+    } else if (walking && sampled_step<V, kWide>(t, smp, tab, pos, steps, out + slot)) {
+      walking = false;
+    }
   }
 }
 
@@ -650,14 +695,14 @@ unsigned persistent_grid(Kernel kernel, int device, std::atomic<int> (&fit)[kMax
   return (unsigned)(need < resident ? need : resident);
 }
 
-template <int V, bool kRows, bool kWide>
+template <int V, Feed kFeed, bool kWide>
 void launch_sampled(int device, const WalkTables& t, uint64_t sa_ratio, const void* starts, const void* counts,
-                    int64_t nq, int cap, void* cursor, void* out, cudaStream_t st) {
+                    int64_t nq, int cap, void* cursor, void* out, const ShardWalk& w, cudaStream_t st) {
   static std::atomic<int> fit[kMaxDevices];
-  auto kernel = sampled_walk_kernel<V, kRows, kWide>;
+  auto kernel = sampled_walk_kernel<V, kFeed, kWide>;
   kernel<<<persistent_grid(kernel, device, fit, nq), kThreads, 0, st>>>(
       t, Sampling<kWide>::of(sa_ratio), (const int64_t*)starts, (const int64_t*)counts, nq, cap,
-      (unsigned long long*)cursor, (int64_t*)out);
+      (unsigned long long*)cursor, (int64_t*)out, w);
 }
 
 void set_device(int device) {
@@ -676,21 +721,18 @@ WalkTables widen(WalkTables t, int card, const void* ms_base, const void* mark_b
   return t;
 }
 
-template <Variant kVar>
-int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offset, uint32_t first_block,
-                    uint32_t local_blocks, const void* rows, int64_t n, void* stepped, void* mark, void* stream) {
-  using Mark = MarkRank<kVar == Variant::kWide>;
+template <bool kWide>
+int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offset, const void* rows, int64_t n,
+                    void* stepped, void* mark, void* stream) {
   set_device(device);
   cudaStream_t st = (cudaStream_t)stream;
   if (n > 0) {
     if (nplanes == 3) {
-      backstep_kernel<3, kVar><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, first_block, local_blocks,
-                                                                   (const int64_t*)rows, n, (int64_t*)stepped,
-                                                                   (Mark*)mark);
+      backstep_kernel<3, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
     } else if (nplanes == 5) {
-      backstep_kernel<5, kVar><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, first_block, local_blocks,
-                                                                   (const int64_t*)rows, n, (int64_t*)stepped,
-                                                                   (Mark*)mark);
+      backstep_kernel<5, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -717,18 +759,19 @@ int launch_marked_walk(int device, const WalkTables& t, int nplanes, int mark_of
   return (int)cudaGetLastError();
 }
 
-// The flat-row walk (kRows; starts = rows, counts unused) or the range-fed
-// walk.
-template <bool kRows, bool kWide>
+// The flat-row walk (kRows; starts = rows, counts unused), the range-fed
+// walk, or a shard's walk in place (kShard: w).
+template <Feed kFeed, bool kWide>
 int launch_sampled_walk(int device, const WalkTables& t, int nplanes, uint64_t sa_ratio, const void* starts,
-                        const void* counts, int64_t nq, int cap, void* cursor, void* out, void* stream) {
+                        const void* counts, int64_t nq, int cap, void* cursor, void* out, void* stream,
+                        const ShardWalk& w = {}) {
   set_device(device);
   cudaStream_t st = (cudaStream_t)stream;
   if (nq > 0) {
     if (nplanes == 3) {
-      launch_sampled<3, kRows, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
+      launch_sampled<3, kFeed, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, w, st);
     } else if (nplanes == 5) {
-      launch_sampled<5, kRows, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, st);
+      launch_sampled<5, kFeed, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, w, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -747,19 +790,7 @@ extern "C" int awry_backstep(int device, const void* blocks, int64_t num_blocks,
                              void* stream) {
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                    nullptr, 0, 0);
-  return launch_backstep<Variant::kNarrow>(device, t, nplanes, mark_offset, 0, 0, rows, n, stepped, mark, stream);
-}
-
-// The shard variant: blocks holds the local_blocks rows of blocks
-// [first_block, first_block + local_blocks) of a table of total_blocks.
-extern "C" int awry_backstep_shard(int device, const void* blocks, int64_t local_blocks, int64_t first_block,
-                                   int64_t total_blocks, int row_words, int nplanes, const void* prefix_sums,
-                                   const void* codes, const void* c2i, int mark_offset, int ambiguity_idx,
-                                   const void* rows, int64_t n, void* stepped, void* mark, void* stream) {
-  const WalkTables t = walk_tables(blocks, total_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
-                                   nullptr, 0, 0);
-  return launch_backstep<Variant::kShard>(device, t, nplanes, mark_offset, (uint32_t)first_block,
-                                          (uint32_t)local_blocks, rows, n, stepped, mark, stream);
+  return launch_backstep<false>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream);
 }
 
 extern "C" int awry_marked_walk(int device, const void* blocks, int64_t num_blocks, int row_words,
@@ -782,7 +813,7 @@ extern "C" int awry_sampled_walk(int device, const void* blocks, int64_t num_blo
                                  const void* rows, int64_t n, void* cursor, void* text_pos, void* stream) {
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  return launch_sampled_walk<true, false>(device, t, nplanes, sa_ratio, rows, nullptr, n, 1, cursor, text_pos,
+  return launch_sampled_walk<Feed::kRows, false>(device, t, nplanes, sa_ratio, rows, nullptr, n, 1, cursor, text_pos,
                                           stream);
 }
 
@@ -794,8 +825,23 @@ extern "C" int awry_sampled_walk_ranges(int device, const void* blocks, int64_t 
                                         void* cursor, void* out, void* stream) {
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
-  return launch_sampled_walk<false, false>(device, t, nplanes, sa_ratio, starts, counts, nq, cap, cursor, out,
+  return launch_sampled_walk<Feed::kRanges, false>(device, t, nplanes, sa_ratio, starts, counts, nq, cap, cursor, out,
                                            stream);
+}
+
+// The shard walk: blocks holds the local_blocks rows of blocks [first_block,
+// first_block + local_blocks) of a table of total_blocks; rows and steps
+// (int64 [n]) are walked in place; cursor: a zeroed 64-bit counter.
+extern "C" int awry_sampled_walk_shard(int device, const void* blocks, int64_t local_blocks, int64_t first_block,
+                                       int64_t total_blocks, int row_words, int nplanes, const void* prefix_sums,
+                                       const void* codes, const void* c2i, int ambiguity_idx, uint32_t sa_ratio,
+                                       int64_t bwt_len, void* rows, void* steps, int64_t n, void* cursor,
+                                       void* stream) {
+  const WalkTables t = walk_tables(blocks, total_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                   nullptr, 0, bwt_len);
+  const ShardWalk w{(int64_t*)rows, (int64_t*)steps, (uint32_t)first_block, (uint32_t)local_blocks};
+  return launch_sampled_walk<Feed::kShard, false>(device, t, nplanes, sa_ratio, nullptr, nullptr, n, 1, cursor,
+                                                  nullptr, stream, w);
 }
 
 // The wide variants: the same arguments as their narrow twins, with card,
@@ -810,7 +856,7 @@ extern "C" int awry_backstep_wide(int device, const void* blocks, int64_t num_bl
   const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                          nullptr, 0, 0),
                              card, ms_base, mark_base, group_shift, nullptr);
-  return launch_backstep<Variant::kWide>(device, t, nplanes, mark_offset, 0, 0, rows, n, stepped, mark, stream);
+  return launch_backstep<true>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream);
 }
 
 extern "C" int awry_marked_walk_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
@@ -834,7 +880,7 @@ extern "C" int awry_sampled_walk_wide(int device, const void* blocks, int64_t nu
   const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                          nullptr, sa_len, bwt_len),
                              card, ms_base, nullptr, group_shift, sampled_sa);
-  return launch_sampled_walk<true, true>(device, t, nplanes, sa_ratio, rows, nullptr, n, 1, cursor, text_pos,
+  return launch_sampled_walk<Feed::kRows, true>(device, t, nplanes, sa_ratio, rows, nullptr, n, 1, cursor, text_pos,
                                          stream);
 }
 
@@ -848,6 +894,6 @@ extern "C" int awry_sampled_walk_ranges_wide(int device, const void* blocks, int
   const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
                                          nullptr, sa_len, bwt_len),
                              card, ms_base, nullptr, group_shift, sampled_sa);
-  return launch_sampled_walk<false, true>(device, t, nplanes, sa_ratio, starts, counts, nq, cap, cursor, out,
+  return launch_sampled_walk<Feed::kRanges, true>(device, t, nplanes, sa_ratio, starts, counts, nq, cap, cursor, out,
                                           stream);
 }

@@ -1,7 +1,7 @@
 // occ_pair: (Occ(pos_a[i], sym[i]), Occ(pos_b[i], sym[i])) over fused block
 // rows, where Occ(p, c) = count of symbol c in BWT[0..=p]; occ: Occ(pos[i],
 // sym[i]) alone; occ_pair_wide and occ_wide: the same over a 64-bit index;
-// occ_pair_shard: occ_pair over one shard's window of blocks (below).
+// occ_pair_shard: the LF range update over one shard's window (below).
 //
 // occ_pair replaces awry_tpu/ops/sweep.py:_occ_pair_pay_kernel_anchored (the
 // post-seed LF steps of seeded_pair_chain) and its twin
@@ -84,23 +84,29 @@
 // output per request.
 //
 // occ_pair_shard is the range-sharded index's rank step (Mode B,
-// awry_tpu_torch/parallel/sharding.py): a third instantiation of occ_pair's
-// template over one shard's rows, blocks [first_block, first_block +
-// local_blocks) of total_blocks.  Positions are clamped into the whole table
-// as the narrow kernel clamps them; a request whose block lies outside the
-// window writes 0 and reads no row, and an owned one reads its row from the
-// window.  Milestones count over the whole BWT, so the owner's rank is the
-// global rank and the sum over the shards equals occ_pair on the whole
-// table.  It replaces the per-shard paired sweep of Mode B
-// (awry_tpu/parallel/sharding.py _sharded_update_fn: occurrence_sweep_pair,
-// sweep.py:589 _occ_pair_kernel_anchored and :608 _occ_pair_kernel, then a
-// psum over the shard axis).  The window test in the kernel takes the place
-// of the mask arithmetic the JAX code runs around each call.  Bound: the
-// owned requests' sectors, and all requests' 28 B of I/O.
+// awry_tpu_torch/parallel/sharding.py) over one shard's rows, blocks
+// [first_block, first_block + local_blocks) of total_blocks: it finishes the
+// LF range update for the endpoints its window owns, new start = C[s] +
+// Occ(start - 1, s) and new end = C[s] + Occ(end, s) - 1 in int64, and
+// writes only those entries.  Positions are clamped into the whole table,
+// so each endpoint has exactly one owner and the shards of a device,
+// launched one after another on the step's two output arrays, write every
+// entry once: no partials, no sum, no C[sym] + pass.  It replaces the
+// per-shard paired sweep of Mode B (awry_tpu/parallel/sharding.py
+// _sharded_update_fn: occurrence_sweep_pair, sweep.py:589
+// _occ_pair_kernel_anchored and :608 _occ_pair_kernel, then a psum over the
+// shard axis and the prefix-sum add).  Bound: the owned endpoints' sectors,
+// 16 B of positions per request, the symbol of each request with an owned
+// endpoint and 8 B per owned endpoint out.  Design (occ_pair_shard_kernel):
+// a lane per request tests its endpoints, and pairs of lanes rank only the
+// warp's owned requests (occ_pair's cooperative loads), so a launch spends
+// its row loads on its quarter of the table; C and the codes sit in shared
+// memory.
 //
 // ptxas (sm_90a, -Xptxas=-v): occ_pair 32 registers (V = 3) and 36 (V = 5);
-// occ_pair_wide 32 and 42; occ 56 and 61 registers, 46,144 and 46,032 bytes
-// of shared memory.
+// occ_pair_wide 32 and 42; occ_pair_shard 40 and 44, 640 bytes of shared
+// memory; occ 56 and 61 registers, 46,144 and 46,032 bytes of shared
+// memory; occ_wide 59 and 64.  No spills.
 
 #include <cuda_runtime.h>
 
@@ -216,26 +222,18 @@ __device__ __forceinline__ uint32_t pair_occ(const uint32_t* __restrict__ blocks
   return ms + c;
 }
 
-// occ_pair's variants: the whole table (kNarrow); a 64-bit index (kWide):
-// texts of 2^32 symbols and more, whose rows' milestones are relative to
-// their group of 2^group_shift blocks, the groups' absolute counts in
-// ms_base (int64 [groups, card], a few KB that stay in L2), the ranks
-// written as int64, lane 0 of the pair reading the two group bases while the
-// pair reads the rows; one shard's window (kShard): `blocks` holds the rows
-// of blocks [first_block, first_block + local_blocks), positions are
-// clamped into the whole table (nbits), and an endpoint outside the window
-// counts 0 and reads nothing.  The narrow instantiation compiles to the code
-// it had before.
-enum class Variant { kNarrow, kWide, kShard };
-
-template <int V, Variant kVar>
+// The wide variant (kWide) serves texts of 2^32 symbols and more: a row's
+// milestones are relative to its group of 2^group_shift blocks, whose
+// absolute counts sit in ms_base (int64 [groups, card], a few KB that stay
+// in L2), and the ranks are written as int64.  Lane 0 of the pair reads the
+// two group bases while the pair reads the rows.  The narrow instantiation
+// compiles to the code it had before.
+template <int V, bool kWide>
 __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
     const uint32_t* __restrict__ blocks, int64_t nbits, int row_words, int card,
     const int32_t* __restrict__ codes, const int64_t* __restrict__ ms_base, int group_shift,
-    uint32_t first_block, uint32_t local_blocks, const int64_t* __restrict__ pos_a,
-    const int64_t* __restrict__ pos_b, const int32_t* __restrict__ sym, int64_t n,
-    RankOut<kVar == Variant::kWide>* __restrict__ occ_a, RankOut<kVar == Variant::kWide>* __restrict__ occ_b) {
-  constexpr bool kWide = kVar == Variant::kWide, kShard = kVar == Variant::kShard;
+    const int64_t* __restrict__ pos_a, const int64_t* __restrict__ pos_b, const int32_t* __restrict__ sym,
+    int64_t n, RankOut<kWide>* __restrict__ occ_a, RankOut<kWide>* __restrict__ occ_b) {
   const int64_t q = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 1;
   const uint32_t h = threadIdx.x & 1u;
   // Lanes past the end serve the last request again and store nothing, so
@@ -260,23 +258,14 @@ __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
   b.local = (packed >> 8) & 255u;
   const uint32_t s = (packed >> 16) & 255u, code = packed >> 24;
 
-  // A shard owns the endpoints whose block lies in its window, and reads
-  // their rows at the block's place in the window (wrapping below it).
-  const bool own_a = !kShard || a.blk - first_block < local_blocks;
-  const bool own_b = !kShard || b.blk - first_block < local_blocks;
-  if constexpr (kShard) {
-    a.blk -= first_block;
-    b.blk -= first_block;
-  }
-  // One row read when both endpoints share a block, else two (an endpoint
-  // another shard owns reads nothing and counts 0).
+  // One row read when both endpoints share a block, else two.
   const bool two = a.blk != b.blk;
   const uint32_t* row_a = row_of(blocks, a.blk, row_words);
   const uint32_t* row_b = row_of(blocks, b.blk, row_words);
-  const uint32_t ms_a = own_a ? __ldg(row_a + V * 8 + s) : 0u;
-  const uint32_t ms_b = two ? (own_b ? __ldg(row_b + V * 8 + s) : 0u) : ms_a;
-  const uint4 acc_a = own_a ? half_and<V>(row_a, h, code) : zeros4();
-  const uint4 acc_b = two ? (own_b ? half_and<V>(row_b, h, code) : zeros4()) : acc_a;
+  const uint32_t ms_a = __ldg(row_a + V * 8 + s);
+  const uint32_t ms_b = two ? __ldg(row_b + V * 8 + s) : ms_a;
+  const uint4 acc_a = half_and<V>(row_a, h, code);
+  const uint4 acc_b = two ? half_and<V>(row_b, h, code) : acc_a;
   uint32_t c = half_count(acc_a, h, a.local) | (half_count(acc_b, h, b.local) << 16);
   c += __shfl_xor_sync(kFull, c, 1, 2);
   if (h == 0 && q < n) {
@@ -286,6 +275,104 @@ __global__ void __launch_bounds__(kThreads) occ_pair_kernel(
     } else {
       store_once(occ_a + q, ms_a + (c & 0xFFFFu));
       store_once(occ_b + q, ms_b + (c >> 16));
+    }
+  }
+}
+
+// -- occ_pair_shard: the owner's finished range update ----------------------------
+
+constexpr int kMaxCard = 32;  // symbols an alphabet may have (nucleotide 6, amino 22)
+
+// One LF range update over one shard's window: request i ranks pos_a =
+// starts[i] - 1 and pos_b = ends[i] (each clamped into the whole table of
+// nbits rows), and the shard writes new_starts[i] = C[s] + Occ(pos_a, s)
+// when it owns pos_a's block, new_ends[i] = C[s] + Occ(pos_b, s) - 1 when
+// it owns pos_b's (s = sym[i] clamped into the alphabet, read only by a
+// request with an owned endpoint); it writes nothing else.  `blocks` holds
+// the rows of blocks [first_block, first_block + local_blocks).
+//
+// A lane loads one request and tests its two endpoints against the window;
+// a ballot numbers the warp's requests with an owned endpoint, and pairs of
+// lanes rank them 16 at a time with occ_pair's cooperative loads (one row
+// read when both endpoints share a block), then hand each result back to
+// the request's lane, which adds C[s] from shared memory and stores.  So a
+// warp reads its 32 requests' positions once (coalesced) and its rows in
+// ceil(owned / 16) rounds, about one for a quarter of the table.
+template <int V>
+__global__ void __launch_bounds__(kThreads) occ_pair_shard_kernel(
+    const uint32_t* __restrict__ blocks, int64_t nbits, int row_words, int card,
+    const int32_t* __restrict__ codes, const int64_t* __restrict__ prefix_sums, uint32_t first_block,
+    uint32_t local_blocks, const int64_t* __restrict__ starts, const int64_t* __restrict__ ends,
+    const int32_t* __restrict__ sym, int64_t n, int64_t* __restrict__ new_starts,
+    int64_t* __restrict__ new_ends) {
+  __shared__ int64_t c_tab[kMaxCard];
+  __shared__ uint32_t code_tab[kMaxCard];
+  __shared__ uint8_t owner_lane[kThreads];  // per warp: the lane of its k-th request with an owned endpoint
+  for (int c = threadIdx.x; c < card; c += kThreads) {
+    c_tab[c] = prefix_sums[c];
+    code_tab[c] = (uint32_t)codes[c];
+  }
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31u;
+  uint8_t* slots = owner_lane + (threadIdx.x & ~31u);
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+
+  // The lane's request: each endpoint's block relative to the window (wrapping
+  // below it), its place in the block, and whether the window owns it.
+  uint32_t blk_a = 0, blk_b = 0, loc_a = 0, loc_b = 0, s = 0;
+  bool own_a = false, own_b = false;
+  if (i < n) {
+    int64_t pa = load_once(starts + i) - 1, pb = load_once(ends + i);
+    pa = pa < 0 ? 0 : (pa >= nbits ? nbits - 1 : pa);
+    pb = pb < 0 ? 0 : (pb >= nbits ? nbits - 1 : pb);
+    blk_a = (uint32_t)(pa >> 8) - first_block;
+    blk_b = (uint32_t)(pb >> 8) - first_block;
+    loc_a = (uint32_t)pa & 255u;
+    loc_b = (uint32_t)pb & 255u;
+    own_a = blk_a < local_blocks;
+    own_b = blk_b < local_blocks;
+    if (own_a || own_b) {
+      const int x = load_once(sym + i);
+      s = (uint32_t)(x < 0 ? 0 : (x >= card ? card - 1 : x));
+    }
+  }
+  const unsigned owned = __ballot_sync(kFull, own_a || own_b);
+  const unsigned rank = __popc(owned & ((1u << lane) - 1u));
+  if ((owned >> lane) & 1u) slots[rank] = (uint8_t)lane;
+  __syncwarp();
+
+  const uint32_t h = lane & 1u;
+  const unsigned total = __popc(owned);
+  for (unsigned first = 0; first < total; first += 16) {  // warp-uniform
+    // Pair p ranks the warp's (first + p)-th owned request.
+    const unsigned k = first + (lane >> 1);
+    const bool serves = k < total;
+    const unsigned src = serves ? slots[k] : lane;
+    const uint32_t ba = __shfl_sync(kFull, blk_a, src), bb = __shfl_sync(kFull, blk_b, src);
+    const uint32_t packed = __shfl_sync(
+        kFull, loc_a | (loc_b << 8) | (s << 16) | ((uint32_t)own_a << 24) | ((uint32_t)own_b << 25), src);
+    const bool oa = serves && ((packed >> 24) & 1u), ob = serves && ((packed >> 25) & 1u);
+    const uint32_t la = packed & 255u, lb = (packed >> 8) & 255u, sy = (packed >> 16) & 255u;
+    const uint32_t code = code_tab[sy];
+    // One row read when both endpoints share a block, else two (an endpoint
+    // another shard owns reads nothing).
+    const bool two = ba != bb;
+    const uint32_t* row_a = row_of(blocks, ba, row_words);
+    const uint32_t* row_b = row_of(blocks, bb, row_words);
+    const uint32_t ms_a = oa ? __ldg(row_a + V * 8 + sy) : 0u;
+    const uint32_t ms_b = two ? (ob ? __ldg(row_b + V * 8 + sy) : 0u) : ms_a;
+    const uint4 acc_a = oa ? half_and<V>(row_a, h, code) : zeros4();
+    const uint4 acc_b = two ? (ob ? half_and<V>(row_b, h, code) : zeros4()) : acc_a;
+    uint32_t c = half_count(acc_a, h, la) | (half_count(acc_b, h, lb) << 16);
+    c += __shfl_xor_sync(kFull, c, 1, 2);
+    const uint32_t occ_a = ms_a + (c & 0xFFFFu), occ_b = ms_b + (c >> 16);
+    // Back to the request's lane: pair (rank - first) ranked it.
+    const unsigned from = ((rank - first) << 1) & 31u;
+    const uint32_t got_a = __shfl_sync(kFull, occ_a, from), got_b = __shfl_sync(kFull, occ_b, from);
+    if (((owned >> lane) & 1u) && rank - first < 16u) {
+      const int64_t base = c_tab[s];
+      if (own_a) store_once(new_starts + i, base + got_a);
+      if (own_b) store_once(new_ends + i, base + got_b - 1);
     }
   }
 }
@@ -438,26 +525,52 @@ bool rank_part_fits(int row_words, int card) {
   return V * 8 + card <= 4 * kRankPieces<V> && row_words >= 4 * kRankPieces<V>;
 }
 
-template <Variant kVar>
-int launch_occ_pair(int device, const void* blocks, int64_t nbits, int row_words, int nplanes, int card,
-                    const void* codes, const void* ms_base, int group_shift, uint32_t first_block,
-                    uint32_t local_blocks, const void* pos_a, const void* pos_b, const void* sym, int64_t n,
-                    void* occ_a, void* occ_b, void* stream) {
-  using Out = RankOut<kVar == Variant::kWide>;
+template <bool kWide>
+int launch_occ_pair(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes, int card,
+                    const void* codes, const void* ms_base, int group_shift, const void* pos_a,
+                    const void* pos_b, const void* sym, int64_t n, void* occ_a, void* occ_b, void* stream) {
   if (int rc = set_device(device)) return rc;
   if (n > 0) {
     const unsigned grid = (unsigned)((n * 2 + kThreads - 1) / kThreads);
+    const int64_t nbits = num_blocks * 256;
     cudaStream_t st = (cudaStream_t)stream;
     if (nplanes == 3) {
-      occ_pair_kernel<3, kVar><<<grid, kThreads, 0, st>>>(
+      occ_pair_kernel<3, kWide><<<grid, kThreads, 0, st>>>(
           (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
-          group_shift, first_block, local_blocks, (const int64_t*)pos_a, (const int64_t*)pos_b,
-          (const int32_t*)sym, n, (Out*)occ_a, (Out*)occ_b);
+          group_shift, (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
+          (RankOut<kWide>*)occ_a, (RankOut<kWide>*)occ_b);
     } else if (nplanes == 5) {
-      occ_pair_kernel<5, kVar><<<grid, kThreads, 0, st>>>(
+      occ_pair_kernel<5, kWide><<<grid, kThreads, 0, st>>>(
           (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)ms_base,
-          group_shift, first_block, local_blocks, (const int64_t*)pos_a, (const int64_t*)pos_b,
-          (const int32_t*)sym, n, (Out*)occ_a, (Out*)occ_b);
+          group_shift, (const int64_t*)pos_a, (const int64_t*)pos_b, (const int32_t*)sym, n,
+          (RankOut<kWide>*)occ_a, (RankOut<kWide>*)occ_b);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_occ_pair_shard(int device, const void* blocks, int64_t local_blocks, int64_t first_block,
+                          int64_t total_blocks, int row_words, int nplanes, int card, const void* codes,
+                          const void* prefix_sums, const void* starts, const void* ends, const void* sym, int64_t n,
+                          void* new_starts, void* new_ends, void* stream) {
+  if (int rc = set_device(device)) return rc;
+  if (card < 1 || card > kMaxCard) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+    const int64_t nbits = total_blocks * 256;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (nplanes == 3) {
+      occ_pair_shard_kernel<3><<<grid, kThreads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)prefix_sums,
+          (uint32_t)first_block, (uint32_t)local_blocks, (const int64_t*)starts, (const int64_t*)ends,
+          (const int32_t*)sym, n, (int64_t*)new_starts, (int64_t*)new_ends);
+    } else if (nplanes == 5) {
+      occ_pair_shard_kernel<5><<<grid, kThreads, 0, st>>>(
+          (const uint32_t*)blocks, nbits, row_words, card, (const int32_t*)codes, (const int64_t*)prefix_sums,
+          (uint32_t)first_block, (uint32_t)local_blocks, (const int64_t*)starts, (const int64_t*)ends,
+          (const int32_t*)sym, n, (int64_t*)new_starts, (int64_t*)new_ends);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -498,8 +611,8 @@ extern "C" int awry_occ_pair(int device, const void* blocks, int64_t num_blocks,
                              int nplanes, int card, const void* codes, const void* pos_a,
                              const void* pos_b, const void* sym, int64_t n, void* occ_a,
                              void* occ_b, void* stream) {
-  return launch_occ_pair<Variant::kNarrow>(device, blocks, num_blocks * 256, row_words, nplanes, card, codes,
-                                           nullptr, 0, 0, 0, pos_a, pos_b, sym, n, occ_a, occ_b, stream);
+  return launch_occ_pair<false>(device, blocks, num_blocks, row_words, nplanes, card, codes, nullptr, 0, pos_a,
+                                pos_b, sym, n, occ_a, occ_b, stream);
 }
 
 // The wide variant: ms_base int64 [groups, card], group_shift log2 of the
@@ -508,19 +621,20 @@ extern "C" int awry_occ_pair_wide(int device, const void* blocks, int64_t num_bl
                                   int nplanes, int card, const void* codes, const void* ms_base,
                                   int group_shift, const void* pos_a, const void* pos_b, const void* sym,
                                   int64_t n, void* occ_a, void* occ_b, void* stream) {
-  return launch_occ_pair<Variant::kWide>(device, blocks, num_blocks * 256, row_words, nplanes, card, codes,
-                                         ms_base, group_shift, 0, 0, pos_a, pos_b, sym, n, occ_a, occ_b, stream);
+  return launch_occ_pair<true>(device, blocks, num_blocks, row_words, nplanes, card, codes, ms_base, group_shift,
+                               pos_a, pos_b, sym, n, occ_a, occ_b, stream);
 }
 
 // The shard variant: blocks holds the local_blocks rows of blocks
-// [first_block, first_block + local_blocks) of a table of total_blocks.
+// [first_block, first_block + local_blocks) of a table of total_blocks;
+// prefix_sums int64 [card + 1]; starts, ends int64 [n]; new_starts and
+// new_ends int64 [n], written where the window owns the endpoint.
 extern "C" int awry_occ_pair_shard(int device, const void* blocks, int64_t local_blocks, int64_t first_block,
                                    int64_t total_blocks, int row_words, int nplanes, int card, const void* codes,
-                                   const void* pos_a, const void* pos_b, const void* sym, int64_t n, void* occ_a,
-                                   void* occ_b, void* stream) {
-  return launch_occ_pair<Variant::kShard>(device, blocks, total_blocks * 256, row_words, nplanes, card, codes,
-                                          nullptr, 0, (uint32_t)first_block, (uint32_t)local_blocks, pos_a, pos_b,
-                                          sym, n, occ_a, occ_b, stream);
+                                   const void* prefix_sums, const void* starts, const void* ends, const void* sym,
+                                   int64_t n, void* new_starts, void* new_ends, void* stream) {
+  return launch_occ_pair_shard(device, blocks, local_blocks, first_block, total_blocks, row_words, nplanes, card,
+                               codes, prefix_sums, starts, ends, sym, n, new_starts, new_ends, stream);
 }
 
 extern "C" int awry_occ(int device, const void* blocks, int64_t num_blocks, int row_words,

@@ -38,17 +38,18 @@ no power of two), and ``occ_wide`` (int64 ranks: the device k-mer build of a
 wide index).  Each keeps its plain version beside it, in int64.
 
 The range-sharded engine (parallel/sharding.py, Mode B) runs two shard
-variants, each its narrow twin's template instantiated over one shard's
-window of blocks: ``occ_pair_shard`` and ``backstep_shard`` take the
-shard's rows, the global index of its first block and the block count of
-the whole table; a request whose (clamped) block lies outside the window
-gives 0, an owned one the full value, so the sum over the shards equals
-the narrow kernel on the whole table.
+kernels, each over one shard's window of blocks (the shard's rows, the
+global index of its first block and the block count of the whole table),
+each writing only what its window owns, in place: ``occ_pair_shard``
+finishes an LF range update (``rank.update_range``) for the endpoints whose
+(clamped) block lies in the window, so the shards together write every
+entry once; ``sampled_walk_shard`` (the sampled walk's template) walks a
+round's rows while they stay unsampled in the window.
 
 Tables are int32 tensors holding uint32 bit patterns; positions are int64;
 outputs are int32 bit patterns (callers widen with ``& 0xFFFFFFFF``), but
 for backstep's stepped rows, the walks' text positions and every output of
-the wide variants, which are int64.
+the wide and shard variants, which are int64.
 
 ``chip_smoke.py`` holds every kernel against its plain version on the card;
 ``scripts/rank_kernel_study.py --kernels window_read,marked_walk,sampled_walk``
@@ -185,12 +186,12 @@ def _lib():
             lib.awry_occ_wide.restype = i32
             lib.awry_occ_wide.argtypes = [i32, p, i64, i32, i32, i32, p, p, i32, p, p, i64, p, p]
             # The shard variants: the shard's rows, local, first and total
-            # block counts, then the narrow twin's arguments.
+            # block counts, row words and planes, then their own arguments.
             window = [i32, p, i64, i64, i64, i32, i32]
             lib.awry_occ_pair_shard.restype = i32
-            lib.awry_occ_pair_shard.argtypes = [*window, i32, p, p, p, p, i64, p, p, p]
-            lib.awry_backstep_shard.restype = i32
-            lib.awry_backstep_shard.argtypes = [*window, p, p, p, i32, i32, p, i64, p, p, p]
+            lib.awry_occ_pair_shard.argtypes = [*window, i32, p, p, p, p, p, i64, p, p, p]
+            lib.awry_sampled_walk_shard.restype = i32
+            lib.awry_sampled_walk_shard.argtypes = [*window, p, p, p, i32, ctypes.c_uint32, i64, p, p, i64, p, p]
             _lib_handle = lib
         return _lib_handle
 
@@ -1009,7 +1010,7 @@ def sampled_walk_ranges_wide(blocks, bases: WideBases, starts, counts, cap: int,
     return out
 
 
-# -- the shard variants ------------------------------------------------------------
+# -- the shard kernels -------------------------------------------------------------
 
 
 def _shard_window(kernel: str, blocks, first_block: int, total_blocks: int) -> None:
@@ -1020,97 +1021,133 @@ def _shard_window(kernel: str, blocks, first_block: int, total_blocks: int) -> N
         raise ValueError(f"{kernel}: window of {local} blocks at {first_block} outside a table of {total_blocks}")
 
 
-def _owned(pos: torch.Tensor, first_block: int, local_blocks: int, total_blocks: int):
-    """(owned mask, position relative to the window, 0 where not owned) of
-    positions clamped into the whole table."""
-    p = pos.clamp(0, total_blocks * 256 - 1)
-    owned = ((p >> 8) >= first_block) & ((p >> 8) < first_block + local_blocks)
-    return owned, torch.where(owned, p - first_block * 256, 0)
+def owned_by(pos: torch.Tensor, first_block: int, local_blocks: int, limit: int) -> torch.Tensor:
+    """Whether the window of blocks [first_block, first_block +
+    local_blocks) owns each position, clamped into [0, limit)."""
+    blk = pos.clamp(0, limit - 1) >> 8
+    return (blk >= first_block) & (blk < first_block + local_blocks)
 
 
-def occ_pair_shard_plain(blocks, first_block: int, total_blocks: int, pos_a, pos_b, sym, codes, nplanes: int):
-    """Plain version of occ_pair_shard: occ_pair_plain on the window's rows
-    where the clamped position's block is owned, 0 elsewhere."""
+def occ_pair_shard_plain(blocks, first_block: int, total_blocks: int, starts, ends, sym, codes, prefix_sums,
+                         nplanes: int, new_starts, new_ends):
+    """Plain version of occ_pair_shard: the owned endpoints' entries of
+    rank.update_range, from occ on the window's rows, written in place."""
     _shard_window("occ_pair_shard", blocks, first_block, total_blocks)
-    out = []
-    for pos in (pos_a, pos_b):
-        owned, local = _owned(pos, first_block, blocks.shape[0], total_blocks)
-        if not blocks.shape[0]:
-            out.append(torch.zeros(pos.shape, dtype=torch.int32, device=pos.device))
-            continue
-        occ = occ_plain(blocks, local, sym, codes, nplanes)
-        out.append(torch.where(owned, occ, 0))
-    return out[0], out[1]
+    s = sym.clamp(0, codes.shape[0] - 1)
+    for pos, out, less in ((starts - 1, new_starts, 0), (ends, new_ends, 1)):
+        idx = torch.nonzero(owned_by(pos, first_block, blocks.shape[0], total_blocks * 256))[:, 0]
+        local = pos[idx].clamp(0, total_blocks * 256 - 1) - first_block * 256
+        occ = _occ_plain(blocks, local, s[idx], codes, nplanes) & _FULL
+        out[idx] = prefix_sums[s[idx].to(torch.int64)] + occ - less
+    return new_starts, new_ends
 
 
-def occ_pair_shard(blocks, first_block: int, total_blocks: int, pos_a, pos_b, sym, codes, nplanes: int):
-    """(int32[R], int32[R]): occ_pair restricted to one shard's window.
+def occ_pair_shard(blocks, first_block: int, total_blocks: int, starts, ends, sym, codes, prefix_sums, nplanes: int,
+                   new_starts, new_ends):
+    """One shard's part of an LF range update (rank.update_range), written
+    in place; returns (new_starts, new_ends).
 
     blocks: int32[local_blocks, row_words], the fused rows of blocks
     [first_block, first_block + local_blocks) of a table of total_blocks;
-    pos_a, pos_b: int64[R] global positions, clamped into the whole table;
-    an endpoint whose block the window holds gets its full Occ (milestones
-    count over the whole BWT), any other 0.  The rest as for occ_pair."""
+    starts, ends: int64[R] inclusive ranges; sym: int32[R] symbol indices
+    (clamped to the alphabet); prefix_sums: int64[cardinality + 1].  Where
+    the window owns the block of ``starts - 1`` (clamped into the whole
+    table) it writes ``new_starts = C[sym] + Occ(starts - 1, sym)``, where
+    it owns that of ``ends`` ``new_ends = C[sym] + Occ(ends, sym) - 1``
+    (int64[R] each), and nothing else: each endpoint has one owner, so the
+    shards of the table together write every entry once.  The rest as for
+    occ_pair."""
     _shard_window("occ_pair_shard", blocks, first_block, total_blocks)
-    if _on_cpu(blocks, pos_a, pos_b, sym, codes):
-        return occ_pair_shard_plain(blocks, first_block, total_blocks, pos_a, pos_b, sym, codes, nplanes)
-    _check("pos_a", pos_a, torch.int64, 1)
-    _check_rank_args("occ_pair_shard", blocks, pos_b, sym, codes, nplanes)
-    r = pos_a.shape[0]
-    if pos_b.shape[0] != r:
-        raise ValueError("occ_pair_shard: pos_a, pos_b and sym must have one length")
-    occ_a = torch.empty(r, dtype=torch.int32, device=blocks.device)
-    occ_b = torch.empty(r, dtype=torch.int32, device=blocks.device)
-    if r:
+    if _on_cpu(blocks, starts, ends, sym, codes, prefix_sums, new_starts, new_ends):
+        return occ_pair_shard_plain(blocks, first_block, total_blocks, starts, ends, sym, codes, prefix_sums,
+                                    nplanes, new_starts, new_ends)
+    _check_rank_args("occ_pair_shard", blocks, ends, sym, codes, nplanes)
+    r, card = starts.shape[0], codes.shape[0]
+    for name, t in (("starts", starts), ("new_starts", new_starts), ("new_ends", new_ends)):
+        _check(name, t, torch.int64, 1)
+        if t.shape[0] != r:
+            raise ValueError("occ_pair_shard: starts, ends, sym and the outputs must have one length")
+    _check("prefix_sums", prefix_sums, torch.int64, 1)
+    if prefix_sums.shape[0] != card + 1 or card > 32:
+        raise ValueError(f"occ_pair_shard: {prefix_sums.shape[0]} prefix sums for {card} symbols (at most 32)")
+    if r and blocks.shape[0]:
         rc = _lib().awry_occ_pair_shard(
             blocks.device.index, blocks.data_ptr(), blocks.shape[0], first_block, total_blocks, blocks.shape[1],
-            nplanes, codes.shape[0], codes.data_ptr(), pos_a.data_ptr(), pos_b.data_ptr(), sym.data_ptr(), r,
-            occ_a.data_ptr(), occ_b.data_ptr(), _stream(blocks.device),
+            nplanes, card, codes.data_ptr(), prefix_sums.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+            sym.data_ptr(), r, new_starts.data_ptr(), new_ends.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "occ_pair_shard")
         occ_pair_shard.launches += 1
-    return occ_a, occ_b
+    return new_starts, new_ends
 
 
 occ_pair_shard.launches = 0
 
 
-def backstep_shard_plain(blocks, first_block: int, total_blocks: int, rows, prefix_sums, codes, c2i, nplanes: int,
-                         mark_offset: int, ambiguity_idx: int):
-    """Plain version of backstep_shard: backstep_plain on the window's rows
-    where the clamped row's block is owned, 0 in both outputs elsewhere."""
-    _shard_window("backstep_shard", blocks, first_block, total_blocks)
-    owned, local = _owned(rows, first_block, blocks.shape[0], total_blocks)
-    if not blocks.shape[0]:
-        return torch.zeros_like(rows), torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
-    stepped, mark = backstep_plain(blocks, local, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
-    return torch.where(owned, stepped, 0), torch.where(owned, mark, 0)
+def sampled_walk_shard_plain(blocks, first_block: int, total_blocks: int, rows, steps, prefix_sums, codes, c2i,
+                             nplanes: int, ambiguity_idx: int, sa_ratio: int, bwt_len: int):
+    """Plain version of sampled_walk_shard: backstep_plain's LF steps of the
+    live rows the window owns, each until it is sampled, leaves the window
+    or has taken bwt_len steps; written in place."""
+    _shard_window("sampled_walk_shard", blocks, first_block, total_blocks)
+    lo, local_blocks = first_block * 256, blocks.shape[0]
+
+    def walking(p, s):
+        return (p % sa_ratio != 0) & owned_by(p, first_block, local_blocks, bwt_len) & (s < bwt_len)
+
+    pos = rows.clamp(0, bwt_len - 1)
+    idx = torch.nonzero(walking(pos, steps))[:, 0]
+    p, s = pos[idx], steps[idx]
+    while idx.numel():
+        local, r = _fetch_rows(blocks, p - lo)
+        p = _lf_rows(r, local, prefix_sums, codes, c2i, nplanes, ambiguity_idx).clamp(0, bwt_len - 1)
+        s = s + 1
+        rows[idx], steps[idx] = p, s
+        keep = walking(p, s)
+        idx, p, s = idx[keep], p[keep], s[keep]
+    return rows, steps
 
 
-def backstep_shard(blocks, first_block: int, total_blocks: int, rows, prefix_sums, codes, c2i, nplanes: int,
-                   mark_offset: int, ambiguity_idx: int):
-    """(int64[R], int32[R]): backstep restricted to one shard's window: the
-    LF-stepped row (0 for a sentinel row) and the packed mark from the
-    owner of each clamped row, 0 in both outputs from any other shard.
-    blocks, first_block, total_blocks as for occ_pair_shard; the rest as
-    for backstep."""
-    _shard_window("backstep_shard", blocks, first_block, total_blocks)
-    if _on_cpu(blocks, rows, prefix_sums, codes, c2i):
-        return backstep_shard_plain(blocks, first_block, total_blocks, rows, prefix_sums, codes, c2i, nplanes,
-                                    mark_offset, ambiguity_idx)
-    _check_walk_args("backstep_shard", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, mark_offset)
+def sampled_walk_shard(blocks, first_block: int, total_blocks: int, rows, steps, prefix_sums, codes, c2i,
+                       nplanes: int, ambiguity_idx: int, sa_ratio: int, bwt_len: int, *, cursor=None):
+    """One shard's part of the row-sampled walks of a round's rows, in
+    place; returns (rows, steps).
+
+    blocks, first_block, total_blocks as for occ_pair_shard; rows, steps:
+    int64[R], each row clamped into [0, bwt_len).  A row the window owns
+    that is not sampled (``row % sa_ratio != 0``) and has taken fewer than
+    bwt_len steps takes LF steps (sentinel rows step to 0) until it is
+    sampled, its block lies outside the window, or its steps reach bwt_len;
+    its row and steps are written back.  Every other row stays as it is,
+    and no SA value is read.  prefix_sums .. ambiguity_idx as for
+    sampled_walk (the mark words are not read).  cursor: the launch's work
+    counter, an int64[1] zero on the rows' device that the launch uses up
+    (walk_rounds zeroes one per launch of a round at once); None zeroes
+    one here."""
+    _shard_window("sampled_walk_shard", blocks, first_block, total_blocks)
+    if not 1 <= bwt_len <= total_blocks * 256 or not 1 <= sa_ratio < 2**32:
+        raise ValueError(f"sampled_walk_shard: sa_ratio={sa_ratio}, bwt_len={bwt_len}, {total_blocks} blocks")
+    if _on_cpu(blocks, rows, steps, prefix_sums, codes, c2i):
+        return sampled_walk_shard_plain(blocks, first_block, total_blocks, rows, steps, prefix_sums, codes, c2i,
+                                        nplanes, ambiguity_idx, sa_ratio, bwt_len)
+    _check_walk_args("sampled_walk_shard", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx)
+    _check("steps", steps, torch.int64, 1)
     r = rows.shape[0]
-    stepped = torch.empty(r, dtype=torch.int64, device=blocks.device)
-    mark = torch.empty(r, dtype=torch.int32, device=blocks.device)
-    if r:
-        rc = _lib().awry_backstep_shard(
+    if steps.shape[0] != r:
+        raise ValueError(f"sampled_walk_shard: {r} rows, {steps.shape[0]} steps")
+    if r and blocks.shape[0]:
+        if cursor is None:
+            cursor = torch.zeros(1, dtype=torch.int64, device=blocks.device)
+        elif cursor.dtype != torch.int64 or cursor.numel() != 1 or cursor.device != blocks.device:
+            raise ValueError(f"sampled_walk_shard: cursor must be one int64 on {blocks.device}")
+        rc = _lib().awry_sampled_walk_shard(
             blocks.device.index, blocks.data_ptr(), blocks.shape[0], first_block, total_blocks, blocks.shape[1],
-            nplanes, prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), mark_offset, ambiguity_idx,
-            rows.data_ptr(), r, stepped.data_ptr(), mark.data_ptr(), _stream(blocks.device),
+            nplanes, prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), ambiguity_idx, sa_ratio, bwt_len,
+            rows.data_ptr(), steps.data_ptr(), r, cursor.data_ptr(), _stream(blocks.device),
         )
-        _launch_check(rc, "backstep_shard")
-        backstep_shard.launches += 1
-    return stepped, mark
+        _launch_check(rc, "sampled_walk_shard")
+        sampled_walk_shard.launches += 1
+    return rows, steps
 
 
-backstep_shard.launches = 0
+sampled_walk_shard.launches = 0

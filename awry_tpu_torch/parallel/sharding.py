@@ -13,15 +13,19 @@ The counterpart of ``awry_tpu/parallel/sharding.py``, over a ``('data',
   blocks; slots on one device share one shipped copy, each shard a view of
   it.  The prefix sums, codes, k-mer table and the row-sampled SA are
   replicated to each data slot's device (its first slot's).  Each rank step
-  runs one ``occ_pair_shard`` launch per shard: a shard ranks the endpoints
-  its window owns and gives 0 for the others, and milestones count over
-  the whole BWT, so the sum of the partials on the slot's device (each
-  moved there first when its shard lives elsewhere) is the global rank: the
-  port's psum.  Locate is the row-sampled walk with the collective
-  backstep, as in JAX: while any row is unsampled, one ``backstep_shard``
-  launch per shard, the sum and ``where(live)``; then ``sampled_sa[row //
-  sa_ratio]`` plus the steps, modulo bwt_len.  The JAX zero-block padding
-  is not needed: the kernels' window test replaces it.
+  runs one ``occ_pair_shard`` launch per shard: a shard finishes the range
+  update (``C[sym] + Occ``) for the endpoints its window owns and writes
+  them straight into the step's new ranges on the slot's device (each
+  endpoint has one owner, and milestones count over the whole BWT), so no
+  partial sum is taken: the port's psum.  Locate is the row-sampled walk in
+  rounds over the live rows (``walk_rounds``): each round compacts the
+  rows not yet sampled and makes ``round_passes`` passes over the shards,
+  one ``sampled_walk_shard`` launch per shard and pass, each walking the
+  rows its window holds until they are sampled or step out of it; then
+  ``sampled_sa[row // sa_ratio]`` plus the steps, modulo bwt_len.  A shard
+  on another device works on a copy, merged back by the window test
+  (``merge_owned``).  The JAX zero-block padding is not needed: the
+  kernels' window test replaces it.
 
 The sweep layouts of the JAX engine (``use_sweep``) are TPU workarounds and
 have no counterpart.  The wire formats are the single-device engine's
@@ -36,6 +40,7 @@ passes the same global query list and serves, on its own mesh, the slice
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -90,54 +95,116 @@ class _Slot:
 
     def update(self, starts, ends, sym):
         """One LF range update with collective ranks: one occ_pair_shard
-        launch per shard, the partials summed here (each is 0 but the
-        owner's, so the int32 sum is exact), then C[sym] +."""
-        pos_a, sym32 = starts - 1, sym.to(torch.int32)
-        occ_a = occ_b = None
+        launch per shard, each writing the entries its window owns straight
+        into the step's new (starts, ends) on this device; a shard on
+        another device writes a buffer there, merged here by the window
+        test."""
+        new_starts, new_ends = torch.empty_like(starts), torch.empty_like(ends)
+        sym32 = sym.to(torch.int32)
+        nbits = self.total_blocks * 256
         for sh in self.shards:
-            a, b = kernels.occ_pair_shard(
-                sh.blocks, sh.first_block, self.total_blocks, pos_a.to(sh.device), ends.to(sh.device),
-                sym32.to(sh.device), sh.codes, self.dev.num_planes,
-            )
-            a, b = a.to(self.device), b.to(self.device)
-            occ_a, occ_b = (a, b) if occ_a is None else (occ_a + a, occ_b + b)
-        c = self.dev.prefix_sums[sym.to(torch.int64)]
-        return c + (occ_a.to(torch.int64) & 0xFFFFFFFF), c + (occ_b.to(torch.int64) & 0xFFFFFFFF) - 1
-
-    def backstep(self, rows):
-        """LF of each row (sentinel rows -> 0), summed over one
-        backstep_shard launch per shard."""
-        amb = self.dev.alphabet.ambiguity_idx
-        out = None
-        for sh in self.shards:
-            stepped, _ = kernels.backstep_shard(
-                sh.blocks, sh.first_block, self.total_blocks, rows.to(sh.device), sh.prefix_sums, sh.codes, sh.c2i,
-                self.dev.num_planes, self.dev.mark_offset, amb,
-            )
-            stepped = stepped.to(self.device)
-            out = stepped if out is None else out + stepped
-        return out
+            args = (sh.blocks, sh.first_block, self.total_blocks)
+            if sh.device == self.device:
+                kernels.occ_pair_shard(*args, starts, ends, sym32, sh.codes, sh.prefix_sums, self.dev.num_planes,
+                                       new_starts, new_ends)
+                continue
+            a, b = (torch.empty(starts.shape, dtype=torch.int64, device=sh.device) for _ in range(2))
+            kernels.occ_pair_shard(*args, starts.to(sh.device), ends.to(sh.device), sym32.to(sh.device), sh.codes,
+                                   sh.prefix_sums, self.dev.num_planes, a, b)
+            new_starts = merge_owned(new_starts, a.to(self.device), starts - 1, sh, nbits)
+            new_ends = merge_owned(new_ends, b.to(self.device), ends, sh, nbits)
+        return new_starts, new_ends
 
     def walk(self, rows):
         """int64 text position of each row: lf_walk in Mode A; in Mode B the
-        row-sampled walk with the collective backstep (one host check of
-        the live rows per step)."""
+        row-sampled walk in rounds over the shards (walk_rounds), then the
+        sampled SA read here."""
         if self.shards is None:
             return lf_walk(self.dev, rows)
         dev = self.dev
-        pos = rows
-        steps = torch.zeros_like(rows)
-        live = pos % dev.sa_ratio != 0
-        for _ in range(dev.bwt_len + 1):
-            if not bool(live.any()):
-                break
-            pos = torch.where(live, self.backstep(pos), pos)
-            steps += live.to(torch.int64)
-            live = pos % dev.sa_ratio != 0
-        else:
-            raise RuntimeError(f"a row took {dev.bwt_len} LF steps without reaching a sampled row (a corrupt index)")
+        pos, steps, _ = walk_rounds(self.shards, self.total_blocks, rows, dev.num_planes, dev.alphabet.ambiguity_idx,
+                                    dev.sa_ratio, dev.bwt_len)
         sa = kernels._sa_values(kernels.window_read, dev.sampled_sa, pos // dev.sa_ratio)
         return kernels._text_pos_mod(sa, steps, dev.bwt_len)
+
+
+def merge_owned(dst: torch.Tensor, src: torch.Tensor, pos: torch.Tensor, shard: Shard, limit: int) -> torch.Tensor:
+    """A shard's writes made on another device, brought to ``dst``'s device
+    as ``src``, merged by the window test: ``src`` where the shard owns the
+    block of ``pos`` (clamped into [0, limit)), ``dst`` elsewhere."""
+    own = kernels.owned_by(pos, shard.first_block, shard.blocks.shape[0], limit)
+    return torch.where(own, src, dst)
+
+
+# The most passes round_passes gives one round.
+MAX_ROUND_PASSES = 1024
+
+
+def round_passes(live: int, num_shards: int, sa_ratio: int, survival: float | None = None) -> int:
+    """Passes over the shards for a round of ``live`` rows of walk_rounds:
+    the passes after which every one of them is sampled with probability
+    one half, if each stays live through a pass with probability q
+    independently: ln(live / ln 2) / -ln(q), at least 1 and at most
+    MAX_ROUND_PASSES.  q is ``survival``, what the rounds before showed,
+    or in a round with none before it that of walks over random rows: an LF
+    step reaches a sampled row 1 time in sa_ratio and otherwise lands
+    outside the window in num_shards - 1 of num_shards, in an earlier one
+    (which ends the row's pass) half of those times, so a pass ends at a
+    sample 1 time in 1 + (sa_ratio - 1)(num_shards - 1) / (2 num_shards).
+    Fewer passes add rounds, each a compaction and a host sync; more run
+    launches over finished rows."""
+    if survival is None:
+        survival = 1 - 1 / (1 + (sa_ratio - 1) * (num_shards - 1) / (2 * num_shards))
+    if survival <= 0:
+        return 1
+    if survival >= 1:
+        return MAX_ROUND_PASSES
+    return max(1, min(MAX_ROUND_PASSES, math.ceil(math.log(live / math.log(2)) / -math.log(survival))))
+
+
+def walk_rounds(shards: list[Shard], total_blocks: int, rows, nplanes: int, ambiguity_idx: int, sa_ratio: int,
+                bwt_len: int):
+    """The row-sampled walk of each row (clamped into [0, bwt_len)) over a
+    range-sharded index, in rounds over the live rows: (final rows, steps,
+    [(live rows, passes)] of each round).
+
+    A round compacts the rows not yet sampled (one host sync) and gives
+    them to each shard in order, one sampled_walk_shard launch each, for
+    round_passes passes over the shards, sized by the share of the rows
+    that stayed live per pass over all the rounds before (one round's few
+    last rows alone give too coarse a share); a shard walks the rows its
+    window holds until they are sampled or step out of it, so a row can
+    cross into later windows within a pass and go on in the next.  A shard on
+    another device walks a copy of the round's rows, merged back by the
+    window test.  A row still unsampled after bwt_len steps (a corrupt
+    index) raises."""
+    dev = rows.device
+    pos = rows.clamp(0, bwt_len - 1)
+    steps = torch.zeros_like(pos)
+    idx = torch.nonzero(pos % sa_ratio != 0)[:, 0]
+    rounds, survival, first, done = [], None, int(idx.numel()), 0
+    while idx.numel():
+        live = int(idx.numel())
+        passes = round_passes(live, len(shards), sa_ratio, survival)
+        rounds.append((live, passes))
+        r, s = pos[idx], steps[idx]
+        # One zeroed work counter for each launch of the round on this device.
+        cursors = torch.zeros(passes * len(shards), dtype=torch.int64, device=dev)
+        for k, sh in enumerate(shards * passes):
+            args = (sh.blocks, sh.first_block, total_blocks)
+            tail = (sh.prefix_sums, sh.codes, sh.c2i, nplanes, ambiguity_idx, sa_ratio, bwt_len)
+            if sh.device == dev:
+                kernels.sampled_walk_shard(*args, r, s, *tail, cursor=cursors[k : k + 1])
+                continue
+            rr, ss = kernels.sampled_walk_shard(*args, r.to(sh.device), s.to(sh.device), *tail)
+            r, s = merge_owned(r, rr.to(dev), r, sh, bwt_len), merge_owned(s, ss.to(dev), r, sh, bwt_len)
+        pos[idx], steps[idx] = r, s
+        idx = idx[torch.nonzero((r % sa_ratio != 0) & (s < bwt_len))[:, 0]]
+        done += passes
+        survival = (idx.numel() / first) ** (1 / done)
+    if bool((pos % sa_ratio != 0).any()):
+        raise RuntimeError(f"a row took {bwt_len} LF steps without reaching a sampled row (a corrupt index)")
+    return pos, steps, rounds
 
 
 class ShardedFmEngine:

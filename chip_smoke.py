@@ -156,18 +156,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    copy serving two data slots, through count_locate_stream; Mode B,
    ShardedFmEngine over make_mesh(devices=[cuda:0] * 4, shard_size=4), the
    fused rows in 4 shards (views of one copy), every rank step one
-   occ_pair_shard launch per shard and the locate walk the row-sampled walk
-   with one backstep_shard launch per shard and step, through
-   count_locate_arrays.  Each serves the batches with the launch counts
-   set to 0 just before and must give phase 4's answers exactly (counts,
-   offsets, every (record, local) in row order).  Every shard call of Mode
-   B's first batch is held exactly against its plain version, and each
-   step's sum of 4 against one narrow occ_pair / backstep launch.  Report:
-   queries/s end to end of both modes; each shard kernel's 4 calls of one
+   occ_pair_shard launch per shard, each writing the endpoints its window
+   owns into the step's new ranges, and the locate walk the row-sampled
+   walk in rounds over the live rows (a compaction, then passes over the
+   shards sized by the last round's share of rows still live, one
+   sampled_walk_shard launch per shard and pass),
+   through count_locate_arrays.  Each serves the batches
+   with the launch counts set to 0 just before and must give phase 4's
+   answers exactly (counts, offsets, every (record, local) in row order).
+   Every shard call of Mode B's first batch is held exactly against its
+   plain version, each rank step's 4 calls against one narrow
+   rank.update_range and each walk against the narrow sampled_walk on the
+   same rows.  Report: queries/s end to end of both modes, and Mode B's
+   host encode of the same batches alone; occ_pair_shard's 4 calls of one
    full step timed (L2 flushed) beside their bound, the plain version, the
-   narrow twin on the same requests and the collective step (launches, sum
-   and glue); Mode B's walk lengths (p50, p99, max) and time per step; the
-   CUDA device count and the mesh make_mesh() builds from it.
+   narrow twin on the same requests, the collective step and the narrow
+   step (also with the card held busy until the host has issued the step:
+   its device time alone); every sampled_walk_shard launch of batch 0's walk
+   timed from the inputs it found, beside its bound from the live
+   row-steps it took and its plain version, the whole walk on the host
+   clock (and its device busy time under the profiler) beside the narrow
+   sampled_walk of the same rows, the walk's rounds
+   (rows per round, rounds per row p50 / p99 / max) and lengths (steps
+   p50, p99, max); the CUDA device count and the mesh make_mesh() builds
+   from it.
 
 Before each report's first timed site the engine's warmup() runs and the
 card's clocks are sampled (nvidia-smi), and again beside every timed site.
@@ -223,6 +235,8 @@ from awry_tpu_torch.ops.kmer import _level_chunk
 from awry_tpu_torch.ops.verify import SLOT_EXT, WIDE_CAP, unpack_verify_bundle, wide_groups
 from awry_tpu_torch.ops.wide import to_device_wide
 from awry_tpu_torch.parallel import ShardedFmEngine, make_mesh
+from awry_tpu_torch.parallel import sharding
+from awry_tpu_torch.parallel.sharding import _Slot
 
 N_SYMBOLS = 250_000_000  # chr1 scale (bench.py chr1_250Mbp_dna)
 KMER_LEN = 13
@@ -255,20 +269,21 @@ GRCH38_NAMES = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > 2x the 50 MB L2
+STEP_LEAD_CYCLES = 500_000  # time_ms' lead for a call of several launches: about 0.25 ms at 1.98 GHz
 KERNELS = ("window_read", "occ_pair", "backstep", "occ", "marked_walk", "sampled_walk")
 # The 64-bit engine's variants (texts of 2**32 symbols and more), each its
 # narrow twin's template instantiated over the group bases and 64-bit values.
 WIDE_KERNELS = ("occ_pair_wide", "backstep_wide", "marked_walk_wide", "sampled_walk_wide", "occ_wide")
-# The range-sharded engine's variants (Mode B), each its narrow twin's
-# template instantiated over one shard's window of blocks.
-SHARD_KERNELS = ("occ_pair_shard", "backstep_shard")
+# The range-sharded engine's kernels (Mode B), each over one shard's window
+# of blocks, writing in place what its window owns.
+SHARD_KERNELS = ("occ_pair_shard", "sampled_walk_shard")
 ALL_KERNELS = KERNELS + WIDE_KERNELS + SHARD_KERNELS
 SOURCES = {name: f"awry_tpu_torch/csrc/{name}.cu" for name in KERNELS} | {
     "occ": "awry_tpu_torch/csrc/occ_pair.cu", "marked_walk": "awry_tpu_torch/csrc/backstep.cu",
     "sampled_walk": "awry_tpu_torch/csrc/backstep.cu", "occ_pair_wide": "awry_tpu_torch/csrc/occ_pair.cu",
     "backstep_wide": "awry_tpu_torch/csrc/backstep.cu", "marked_walk_wide": "awry_tpu_torch/csrc/backstep.cu",
     "sampled_walk_wide": "awry_tpu_torch/csrc/backstep.cu", "occ_wide": "awry_tpu_torch/csrc/occ_pair.cu",
-    "occ_pair_shard": "awry_tpu_torch/csrc/occ_pair.cu", "backstep_shard": "awry_tpu_torch/csrc/backstep.cu",
+    "occ_pair_shard": "awry_tpu_torch/csrc/occ_pair.cu", "sampled_walk_shard": "awry_tpu_torch/csrc/backstep.cu",
 }
 REPLACES = {
     "window_read": "awry_tpu/ops/sweep.py:1036",  # _anchored_text_kernel
@@ -286,10 +301,10 @@ REPLACES = {
     "occ_wide": "awry_tpu/ops/sweep.py:1108",  # _occ_kernel_anchored at 64 bits (the k-mer build of a wide index)
     # Mode B's per-shard paired sweep (sharding.py _sharded_update_fn:
     # occurrence_sweep_pair, _occ_pair_kernel_anchored :1062 and
-    # _occ_pair_kernel :305) and its collective backstep (_sharded_backstep_fn,
-    # the Mode B counterpart of _backstep_kernel_anchored).
+    # _occ_pair_kernel :305) and its collective LF walk (sharding.py
+    # _sharded_backstep_fn under lf_walk: plain gathers, no Pallas kernel).
     "occ_pair_shard": "awry_tpu/ops/sweep.py:1062",
-    "backstep_shard": "awry_tpu/ops/sweep.py:1123",
+    "sampled_walk_shard": "awry_tpu/parallel/sharding.py:132",
 }
 # The wrappers whose calls a path's first batch records: every kernel's, and
 # sampled_walk_ranges (the range-fed entry of sampled_walk, counted under it).
@@ -298,8 +313,8 @@ RECORDED = (*ALL_KERNELS, "sampled_walk_ranges", "sampled_walk_ranges_wide")
 REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2), "marked_walk": (1,),
                 "sampled_walk": (1,), "sampled_walk_ranges": (1, 2), "occ_pair_wide": (2, 3, 4),
                 "backstep_wide": (2,), "marked_walk_wide": (2,), "sampled_walk_wide": (2,),
-                "sampled_walk_ranges_wide": (2, 3), "occ_wide": (2, 3), "occ_pair_shard": (3, 4, 5),
-                "backstep_shard": (3,)}
+                "sampled_walk_ranges_wide": (2, 3), "occ_wide": (2, 3), "occ_pair_shard": (3, 4, 5, 9, 10),
+                "sampled_walk_shard": (3, 4)}
 WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for marked_walk
 
 # Phase 15: an E. coli-sized text (bench.py ecoli_4.6Mbp_dna) in two records,
@@ -609,10 +624,10 @@ def recording_kernel_inputs(calls: list, want=lambda name, args: True):
     def recorder(name):
         fn, keep = real[name], REQUEST_ARGS[name]
 
-        def rec(*args):
+        def rec(*args, **kw):
             if want(name, args):
                 calls.append((name, tuple(a.clone() if i in keep else a for i, a in enumerate(args))))
-            return fn(*args)
+            return fn(*args, **kw)
 
         # A wrapper counts its launches on the function its module name
         # binds, so while patched the counts land on this stand-in.
@@ -1005,9 +1020,14 @@ def make_flush(device) -> torch.Tensor:
     return torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
 
 
-def time_ms(fn, device, reps: int, flush: torch.Tensor | None, write_flush: bool = False) -> float:
+def time_ms(fn, device, reps: int, flush: torch.Tensor | None, write_flush: bool = False, prepare=None,
+            lead: int = 0) -> float:
     """Mean device time of fn() over reps launches, the L2 flushed before
-    each unless ``flush`` is None.
+    each unless ``flush`` is None; ``prepare()``, untimed, before each
+    flush (an in-place kernel's inputs restored).  ``lead``: cycles the card
+    sleeps (torch.cuda._sleep) before the first event, so that the host has
+    issued all of fn's launches before it starts: the time of a call of
+    several launches without the host's gaps between them.
 
     The flush reads ``flush`` (more than twice the 50 MB L2), which nothing
     writes after make_flush: the timed launch finds L2 full of clean lines
@@ -1018,12 +1038,16 @@ def time_ms(fn, device, reps: int, flush: torch.Tensor | None, write_flush: bool
     fn()
     total = 0.0
     for _ in range(reps):
+        if prepare is not None:
+            prepare()
         if flush is not None:
             if write_flush:
                 flush.zero_()
             else:
                 flush.sum()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(lead)
         a.record()
         fn()
         b.record()
@@ -2079,76 +2103,157 @@ def wide_kmer_build(index, device: torch.device) -> dict:
             "checked_vs_plain": {"occ_wide": {"calls": 1, "max_abs_err": err}}}
 
 
-def occ_pair_shard_bound(blocks, first_block, total_blocks, pos_a, pos_b, sym, codes, nplanes) -> tuple[float, float]:
+def occ_pair_shard_bound(blocks, first_block, total_blocks, starts, ends, sym, codes, prefix_sums, nplanes, *out
+                         ) -> tuple[float, float]:
     """(bytes, ops) of one occ_pair_shard call: the sectors of the endpoints
-    its window owns (as occ_pair_bound counts them) and every request's 20
-    B in and 8 B out; ops per owned endpoint as occ_pair's."""
+    its window owns (as occ_pair_bound counts them), every request's 16 B of
+    positions, the 4 B symbol of each request with an owned endpoint and 8
+    B out per owned endpoint; ops per owned endpoint occ_pair's and the C
+    add."""
     spr = blocks.shape[1] // 8
     nbits = total_blocks * 256
-    rows = torch.cat([pos_a.clamp(0, nbits - 1), pos_b.clamp(0, nbits - 1)]) >> 8
-    s2 = torch.cat([sym, sym]).to(torch.int64)
-    own = (rows >= first_block) & (rows < first_block + blocks.shape[0])
-    owned = int(own.sum())
-    rows, s2 = rows[own], s2[own]
+    own_a = kernels.owned_by(starts - 1, first_block, blocks.shape[0], nbits)
+    own_b = kernels.owned_by(ends, first_block, blocks.shape[0], nbits)
+    rows = torch.cat([(starts - 1).clamp(0, nbits - 1)[own_a], ends.clamp(0, nbits - 1)[own_b]]) >> 8
+    s2 = torch.cat([sym[own_a], sym[own_b]]).clamp(0, codes.shape[0] - 1).to(torch.int64)
+    rows = rows - first_block
     plane = (rows[:, None] * spr + torch.arange(nplanes, device=rows.device)).reshape(-1)
     sectors = torch.unique(torch.cat([plane, rows * spr + ((nplanes * 8 + s2) >> 3)])).numel()
-    return float(sectors * 32 + pos_a.shape[0] * 28), float(owned * (nplanes * 16 + 8 * 3 + 1))
+    owned = rows.shape[0]
+    requests = int((own_a | own_b).sum())
+    return (float(sectors * 32 + starts.shape[0] * 16 + requests * 4 + owned * 8),
+            float(owned * (nplanes * 16 + 8 * 3 + 2)))
 
 
-def backstep_shard_bound(blocks, first_block, total_blocks, rows, *walk) -> tuple[float, float]:
-    """(bytes, ops) of one backstep_shard call: backstep_bound over the rows
-    its window owns, and 20 B of I/O for every other row."""
-    p = rows.clamp(0, total_blocks * 256 - 1)
-    own = ((p >> 8) >= first_block) & ((p >> 8) < first_block + blocks.shape[0])
-    nbytes, ops = backstep_bound(blocks, p[own] - first_block * 256, *walk)
-    return nbytes + 20.0 * int((~own).sum()), ops
+def sampled_walk_shard_bound(blocks, first_block, total_blocks, rows, steps, prefix_sums, codes, c2i, nplanes,
+                             ambiguity_idx, sa_ratio, bwt_len) -> tuple[float, float, int]:
+    """(bytes, ops, row-steps) of one sampled_walk_shard call, from the
+    walks its inputs need (the plain version's steps): each distinct 32 B
+    sector its steps read (the V plane sectors and the stepped symbol's
+    milestone sector), 8 B in per row (the row, which decides whether the
+    call walks it), 8 B more in (its steps) and 16 B out per walked row;
+    ops per step the LF's, as sampled_walk_bound counts them (symbol V*3,
+    rank V*16 + 8*3 + 2)."""
+    spr = blocks.shape[1] // 8
+    lo = first_block * 256
+
+    def walking(p, st):
+        return (p % sa_ratio != 0) & kernels.owned_by(p, first_block, blocks.shape[0], bwt_len) & (st < bwt_len)
+
+    pos = rows.clamp(0, bwt_len - 1)
+    idx = torch.nonzero(walking(pos, steps))[:, 0]
+    walked, row_steps = idx.numel(), 0
+    p, st = pos[idx], steps[idx]
+    sectors = []
+    while idx.numel():
+        local, r = kernels._fetch_rows(blocks, p - lo)
+        sym = kernels._symbol_rows(r, local, c2i, nplanes)
+        base = (local >> 8) * spr
+        sectors += [(base[:, None] + torch.arange(nplanes, device=p.device)).reshape(-1),
+                    base + ((nplanes * 8 + torch.where(sym == 0, ambiguity_idx, sym)) >> 3)]
+        p = kernels._lf_rows(r, local, prefix_sums, codes, c2i, nplanes, ambiguity_idx).clamp(0, bwt_len - 1)
+        del r
+        st = st + 1
+        row_steps += idx.numel()
+        keep = walking(p, st)
+        idx, p, st = idx[keep], p[keep], st[keep]
+    distinct = torch.unique(torch.cat(sectors)).numel() if sectors else 0
+    ops = row_steps * (nplanes * 3 + nplanes * 16 + 8 * 3 + 2)
+    return float(distinct * 32 + rows.shape[0] * 8 + walked * 24), float(ops), row_steps
 
 
 @contextlib.contextmanager
-def checking_shard_calls(narrow, num_shards: int, full: dict):
-    """Hold every occ_pair_shard and backstep_shard call made inside the
-    block exactly against its plain version, and the sum of each step's
-    num_shards calls (made in shard order) against one narrow occ_pair or
-    backstep launch on the narrow device index ``narrow`` of the same host
-    index; keep the calls of the first step with ``full[name]`` requests for
-    the timing."""
+def checking_shard_calls(narrow, slot, num_shards: int, full_step: int):
+    """Hold every occ_pair_shard and sampled_walk_shard call made inside the
+    block exactly against its plain version on the same inputs (the
+    in-place outputs' state before the call copied for it); each step's
+    num_shards occ_pair_shard calls (made in shard order) against one narrow
+    rank.update_range on the narrow device index ``narrow``; each Mode B
+    walk of ``slot`` against the narrow sampled_walk on the same rows.  Keep
+    for the timing the calls of the first step with ``full_step`` requests
+    and every call of the first walk, each with its inputs as the call found
+    them, and each walk's rounds (walk_rounds' live rows and passes of
+    each)."""
     real = {name: getattr(kernels, name) for name in SHARD_KERNELS}
-    state = {name: {"calls": 0, "steps": 0, "max_abs_err": 0, "sum": None, "kept": []} for name in SHARD_KERNELS}
+    state = {name: {"calls": 0, "steps": 0, "max_abs_err": 0, "kept": []} for name in SHARD_KERNELS}
+    walks = {"walks": 0, "rounds": [], "rows": None, "recording": False}
 
-    def twin(name, args):
-        if name == "occ_pair_shard":
-            return kernels.occ_pair(narrow.blocks, *args[3:6], narrow.codes, narrow.num_planes)
-        return kernels.backstep(narrow.blocks, args[3], *args[4:])
+    def before_call(name, args):
+        return tuple(a.clone() if i in REQUEST_ARGS[name] else a for i, a in enumerate(args))
 
     def checker(name):
         fn, plain, st = real[name], getattr(kernels, f"{name}_plain"), state[name]
 
-        def check(*args):
-            out = fn(*args)
-            err = result_err(out, plain(*args))
+        def check(*args, **kw):
+            pre = before_call(name, args)
+            out = fn(*args, **kw)
+            err = result_err(out, plain(*before_call(name, pre)))
             if err != 0:
                 raise AssertionError(f"{name} disagrees with its plain version on a Mode B call: max abs err {err}")
             k = st["calls"] % num_shards
             st["calls"] += 1
-            st["sum"] = out if k == 0 else tuple(a + o for a, o in zip(st["sum"], out, strict=True))
-            if k == num_shards - 1:
-                if result_err(st["sum"], twin(name, args)) != 0:
-                    raise AssertionError(f"a Mode B step's {name} calls do not sum to the narrow kernel's outputs")
-                st["steps"] += 1
-            if args[3].shape[0] == full[name] and (len(st["kept"]) < num_shards and (k == 0 or st["kept"])):
-                st["kept"].append(tuple(a.clone() if i in REQUEST_ARGS[name] else a for i, a in enumerate(args)))
+            if name == "occ_pair_shard":
+                if k == num_shards - 1:
+                    if result_err(out, rank.update_range(narrow, *args[3:6])) != 0:
+                        raise AssertionError("a Mode B rank step does not equal the narrow rank.update_range")
+                    st["steps"] += 1
+                if args[3].shape[0] == full_step and len(st["kept"]) < num_shards and (k == 0 or st["kept"]):
+                    st["kept"].append(pre)
+            elif walks["recording"]:
+                st["kept"].append(pre)
             return out
 
         check.launches = 0
         return check
 
+    def checked_walk(rows):
+        first = walks["walks"] == 0
+        walks["recording"] = first
+        got = _Slot.walk(slot, rows)
+        walks["recording"] = False
+        want = kernels.sampled_walk(narrow.blocks, rows, narrow.prefix_sums, narrow.codes, narrow.c2i,
+                                    narrow.num_planes, narrow.alphabet.ambiguity_idx, slot.dev.sa_ratio,
+                                    slot.dev.sampled_sa, slot.dev.bwt_len)
+        if result_err(got, want) != 0:
+            raise AssertionError("a Mode B walk's positions differ from the narrow sampled_walk on the same rows")
+        walks["walks"] += 1
+        if first:
+            walks["rows"] = rows.clone()
+        return got
+
+    real_rounds = sharding.walk_rounds
+
+    def recorded_rounds(*args):
+        out = real_rounds(*args)
+        walks["rounds"].append(out[2])
+        return out
+
     for name in SHARD_KERNELS:
         setattr(kernels, name, checker(name))
+    slot.walk = checked_walk
+    sharding.walk_rounds = recorded_rounds
     try:
-        yield state
+        yield state, walks
     finally:
+        sharding.walk_rounds = real_rounds
+        del slot.walk
         for name in SHARD_KERNELS:
             setattr(kernels, name, real[name])
+
+
+def round_stats(rounds: list) -> dict:
+    """Rounds of a Mode B walk (walk_rounds' (live rows, passes) of each):
+    how many, the live rows and passes of each, and the rounds per walked
+    row (p50, p99, max: a row is live in the first k rounds, so the rows of
+    round k are those that needed more than k)."""
+    round_rows = [r for r, _ in rounds]
+    n = round_rows[0] if round_rows else 0
+    out = {"rounds": len(round_rows), "rows_per_round": round_rows, "passes_per_round": [p for _, p in rounds],
+           "passes": sum(p for _, p in rounds), "walked_rows": n}
+    for q in (0.5, 0.99):
+        out[f"p{q * 100:g}"] = sum(1 for r in round_rows if r > n * (1 - q))
+    out["max"] = len(round_rows)
+    return out
 
 
 def walk_lengths(narrow, rows: torch.Tensor) -> dict:
@@ -2218,14 +2323,14 @@ def multi_device_path(run: dict, device: torch.device) -> dict:
     if len({sh.blocks.untyped_storage().data_ptr() for sh in shards}) != 1:
         raise AssertionError("Mode B's shards on one device are not views of one tensor")
     slot = engine._slots[0]
-    full = {"occ_pair_shard": len(batches[0]), "backstep_shard": len(batches[0]) * engine.locate_cap}
-    with checking_shard_calls(narrow, 4, full) as state:
+    with checking_shard_calls(narrow, slot, 4, len(batches[0])) as (state, walks):
         first = engine.count_locate_arrays(batches[0])
     if not same_arrays(first, results[0]):
         raise AssertionError("batch 0: Mode B answers differently from phase 4")
     checked = {name: {k: st[k] for k in ("calls", "steps", "max_abs_err")} for name, st in state.items()}
-    log(f"  Mode B first batch: every shard call equal to its plain version, every step's sum to the narrow "
-        f"kernel: {json.dumps(checked)}")
+    checked["walks_vs_narrow_sampled_walk"] = walks["walks"]
+    log(f"  Mode B first batch: every shard call equal to its plain version, every rank step to the narrow "
+        f"update_range, every walk to the narrow sampled_walk: {json.dumps(checked)}")
     reset_launch_counts()
     t0 = time.perf_counter()
     res = [engine.count_locate_arrays(b) for b in batches]
@@ -2238,61 +2343,130 @@ def multi_device_path(run: dict, device: torch.device) -> dict:
     for b, (x, y) in enumerate(zip(results, res, strict=True)):
         if not same_arrays(x, y):
             raise AssertionError(f"batch {b}: Mode B answers differently from phase 4")
+    t0 = time.perf_counter()
+    for b in batches:
+        engine._encode(b)
+    encode_s = time.perf_counter() - t0  # the host encode alone, the serve's first stage
 
-    # Each shard kernel's calls of one full step, timed (L2 flushed) beside
-    # the bound, the plain version, the narrow twin on the same requests and
-    # the collective step (the launches, the sum and the glue around them).
+    # occ_pair_shard: the 4 calls of one full rank step, timed (L2 flushed)
+    # beside the bound, the plain version, the narrow twin on the same
+    # requests, the collective step and the narrow step.
     flush = make_flush(device)
     rows_out, per_kernel = [], {}
-    lengths = walk_lengths(narrow, state["backstep_shard"]["kept"][0][3])
-    for name, bound_fn in (("occ_pair_shard", occ_pair_shard_bound), ("backstep_shard", backstep_shard_bound)):
-        kept = state[name]["kept"]
-        if len(kept) != 4:
-            raise AssertionError(f"{name}: no full step of 4 calls was kept ({len(kept)})")
-        fn, plain = getattr(kernels, name), getattr(kernels, f"{name}_plain")
-        agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "library_ms": None}
-        for i, args in enumerate(kept):
-            nbytes, ops = bound_fn(*args)
-            row = {"kernel": name, "site": f"shard {i} of a full step", "requests": int(args[3].shape[0]),
-                   "window_blocks": int(args[0].shape[0]), "ms": time_ms(lambda a=args: fn(*a), device, 20, flush),
-                   "plain_ms": time_ms(lambda a=args: plain(*a), device, 3, flush),
-                   "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "bytes": nbytes,
-                   "ops": ops, "max_abs_err": 0, "clocks": clocks()}
-            rows_out.append(row)
-            for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops"):
-                agg[k] += row[k]
-        args = kept[0]
-        if name == "occ_pair_shard":
-            pos_a, pos_b, sym = args[3:6]
-            agg["narrow_twin_ms"] = time_ms(lambda: kernels.occ_pair(narrow.blocks, pos_a, pos_b, sym, narrow.codes,
-                                                                     narrow.num_planes), device, 20, flush)
-            agg["collective_step_ms"] = time_ms(lambda: slot.update(pos_a + 1, pos_b, sym), device, 20, flush)
-            agg["narrow_step_ms"] = time_ms(lambda: rank.update_range(narrow, pos_a + 1, pos_b, sym), device, 20,
-                                            flush)
-        else:
-            walk_rows = args[3]
-            agg["narrow_twin_ms"] = time_ms(lambda: kernels.backstep(narrow.blocks, walk_rows, *args[4:]), device,
-                                            20, flush)
-            agg["collective_step_ms"] = time_ms(lambda: slot.backstep(walk_rows), device, 20, flush)
-            torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            slot.walk(walk_rows)
-            torch.cuda.synchronize(device)
-            walk_s = time.perf_counter() - t0
-            agg["walk_steps"] = lengths
-            agg["walk_ms"] = walk_s * 1e3
-            agg["walk_ms_per_step"] = walk_s * 1e3 / max(1, lengths["max"])
-        per_kernel[name] = agg
-        log(f"  Mode B {name}: {launches[name]} launches over {len(batches)} batches; one full step "
-            f"(4 launches) {json.dumps(agg)}")
+    name, kept = "occ_pair_shard", state["occ_pair_shard"]["kept"]
+    if len(kept) != 4:
+        raise AssertionError(f"occ_pair_shard: no full step of 4 calls was kept ({len(kept)})")
+    fn, plain = kernels.occ_pair_shard, kernels.occ_pair_shard_plain
+    agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "library_ms": None}
+    for i, args in enumerate(kept):
+        nbytes, ops = occ_pair_shard_bound(*args)
+        row = {"kernel": name, "site": f"shard {i} of a full step", "requests": int(args[3].shape[0]),
+               "window_blocks": int(args[0].shape[0]), "ms": time_ms(lambda a=args: fn(*a), device, 20, flush),
+               "plain_ms": time_ms(lambda a=args: plain(*a), device, 3, flush),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "bytes": nbytes, "ops": ops,
+               "max_abs_err": 0, "clocks": clocks()}
+        rows_out.append(row)
+        for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops"):
+            agg[k] += row[k]
+    starts, ends, sym = kept[0][3:6]
+    agg["narrow_twin_ms"] = time_ms(lambda: kernels.occ_pair(narrow.blocks, starts - 1, ends, sym, narrow.codes,
+                                                             narrow.num_planes), device, 20, flush)
+    agg["collective_step_ms"] = time_ms(lambda: slot.update(starts, ends, sym), device, 20, flush)
+    agg["narrow_step_ms"] = time_ms(lambda: rank.update_range(narrow, starts, ends, sym), device, 20, flush)
+    # The same two steps with the card held busy until the host has issued
+    # them (about 0.25 ms of sleep): their device time alone.
+    agg["collective_step_device_ms"] = time_ms(lambda: slot.update(starts, ends, sym), device, 20, flush,
+                                               lead=STEP_LEAD_CYCLES)
+    agg["narrow_step_device_ms"] = time_ms(lambda: rank.update_range(narrow, starts, ends, sym), device, 20, flush,
+                                           lead=STEP_LEAD_CYCLES)
+    per_kernel[name] = agg
+    log(f"  Mode B {name}: {launches[name]} launches over {len(batches)} batches; one full step (4 launches) "
+        f"{json.dumps(agg)}")
+
+    # sampled_walk_shard: every launch of batch 0's walk (its cap slots),
+    # each timed from the inputs it found (L2 flushed) beside its bound
+    # from the live row-steps it took and its plain version (one run each:
+    # it repeats the kernel's steps in PyTorch); then the whole walk on the
+    # host clock, beside the narrow sampled_walk of the same rows.
+    name, kept = "sampled_walk_shard", state["sampled_walk_shard"]["kept"]
+    rounds = round_stats(walks["rounds"][0])
+    if len(kept) != 4 * rounds["passes"] or not kept:
+        raise AssertionError(f"sampled_walk_shard: {len(kept)} calls kept for {rounds['rounds']} rounds of "
+                             f"{rounds['passes']} passes in all")
+    fn, plain = kernels.sampled_walk_shard, kernels.sampled_walk_shard_plain
+    agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "library_ms": None,
+           "launches_timed": len(kept), "row_steps": 0}
+    work = {}
+
+    def prepare(pre):
+        def copy():
+            for i in (3, 4):
+                work.setdefault((id(pre), i), pre[i].clone()).copy_(pre[i])
+            work.setdefault((id(pre), "cursor"), torch.zeros(1, dtype=torch.int64, device=device)).zero_()
+        return copy
+
+    def on_work(pre):
+        return tuple(work[(id(pre), i)] if i in (3, 4) else a for i, a in enumerate(pre))
+
+    def launch(pre, fn):
+        a, cursor = on_work(pre), work[(id(pre), "cursor")]
+        return lambda: fn(*a, cursor=cursor)
+
+    sites = []
+    for i, pre in enumerate(kept):
+        nbytes, ops, row_steps = sampled_walk_shard_bound(*pre)
+        prep = prepare(pre)
+        prep()
+        ms = time_ms(launch(pre, fn), device, 5, flush, prepare=prep)
+        plain_ms = time_ms(lambda a=on_work(pre): plain(*a), device, 1, flush, prepare=prep)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops), ("row_steps", row_steps),
+                     ("bound_ms", max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3)):
+            agg[k] += v
+        if i < 4:
+            sites.append({"kernel": name, "site": f"shard {i} of round 1, pass 1", "rows": int(pre[3].shape[0]),
+                          "row_steps": row_steps, "window_blocks": int(pre[0].shape[0]), "ms": ms,
+                          "plain_ms": plain_ms, "bytes": nbytes, "ops": ops, "max_abs_err": 0,
+                          "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "clocks": clocks()})
+    work.clear()
+    rows_out += sites
+    walk_rows = walks["rows"]
+    lengths = walk_lengths(narrow, walk_rows)
+    agg["narrow_twin_ms"] = time_ms(lambda: kernels.sampled_walk(
+        narrow.blocks, walk_rows, narrow.prefix_sums, narrow.codes, narrow.c2i, narrow.num_planes,
+        narrow.alphabet.ambiguity_idx, slot.dev.sa_ratio, slot.dev.sampled_sa, slot.dev.bwt_len), device, 20, flush)
+    walk_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        slot.walk(walk_rows)
+        torch.cuda.synchronize(device)
+        walk_ms.append((time.perf_counter() - t0) * 1e3)
+    agg["walk_ms"] = min(walk_ms)
+    agg["walk_ms_runs"] = walk_ms
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        slot.walk(walk_rows)
+        torch.cuda.synchronize(device)
+    events = prof.key_averages()
+    agg["walk_device_busy_ms"] = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
+    agg["walk_kernel_device_ms"] = sum(getattr(e, "self_device_time_total", 0) for e in events
+                                       if "sampled_walk_kernel" in e.key) / 1e3
+    agg["rounds"] = rounds["rounds"]
+    agg["walk_steps"] = lengths
+    per_kernel[name] = agg
+    log(f"  Mode B {name}: {launches[name]} launches over {len(batches)} batches; batch 0's walk "
+        f"({rounds['rounds']} rounds, {len(kept)} launches) {json.dumps(agg)}")
+    log(f"  Mode B walk rounds of batch 0: {json.dumps(rounds)}; walks per batch 0: "
+        f"{[len(r) for r in walks['rounds']]} rounds")
     for row in rows_out:
         log("  " + json.dumps(row))
-    mode_b = {"ship_s": ship_s, "serve_s": serve_s, "queries": nq, "queries_per_s": nq / serve_s, "launches": launches,
-              "checked_vs_plain": checked, "sites": rows_out, "per_kernel": per_kernel,
+    mode_b = {"ship_s": ship_s, "serve_s": serve_s, "encode_s": encode_s, "queries": nq, "queries_per_s": nq / serve_s,
+              "launches": launches,
+              "checked_vs_plain": checked, "sites": rows_out, "per_kernel": per_kernel, "walk_rounds": rounds,
               "shard_blocks": [int(sh.blocks.shape[0]) for sh in shards]}
-    log(f"  Mode B (4 shards on {device}): {mode_b['queries_per_s']:.1f} queries/s end to end (phase 4's answers); "
-        f"walk steps of batch 0 {json.dumps(lengths)}")
-    del engine, state, slot, shards
+    log(f"  Mode B (4 shards on {device}): {mode_b['queries_per_s']:.1f} queries/s end to end (phase 4's answers), "
+        f"{serve_s:.3f} s of which the host encode alone {encode_s:.3f} s; walk steps of batch 0 {json.dumps(lengths)}")
+    del engine, state, walks, slot, shards
     gc.collect()
     torch.cuda.empty_cache()
     return {"mode_a": mode_a, "mode_b": mode_b, **out}
@@ -2535,7 +2709,7 @@ def main() -> int:
                   "marked_walk": "grch38", "sampled_walk": "markless", "occ_pair_wide": "grch38_wide",
                   "backstep_wide": "grch38_wide", "marked_walk_wide": "grch38_wide",
                   "sampled_walk_wide": "markless_wide", "occ_wide": "markless_wide_kmer",
-                  "occ_pair_shard": "chr1_mode_b", "backstep_shard": "chr1_mode_b"}
+                  "occ_pair_shard": "chr1_mode_b", "sampled_walk_shard": "chr1_mode_b"}
     kernels_line = []
     for name in ALL_KERNELS:
         path = times_from[name]
@@ -2554,8 +2728,9 @@ def main() -> int:
             "bound_by": "bytes" if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / INT32_OPS_PER_S else "operations",
             "library_ms": agg["library_ms"], "times_from_path": path,
             "launches_by_path": {p: v["launches"].get(name, 0) for p, v in paths.items() if "launches" in v},
-        } | {k: agg[k] for k in ("narrow_twin_ms", "collective_step_ms", "narrow_step_ms", "walk_ms_per_step")
-             if k in agg})
+        } | {k: agg[k] for k in ("narrow_twin_ms", "collective_step_ms", "narrow_step_ms", "collective_step_device_ms",
+                                 "narrow_step_device_ms", "walk_ms", "walk_device_busy_ms", "walk_kernel_device_ms",
+                                 "rounds", "launches_timed") if k in agg})
     total_s = time.perf_counter() - t_start
     log(f"total seconds: {total_s:.3f}")
     record = {

@@ -6,7 +6,7 @@ row-sampled walk.
 
     python3 scripts/rank_kernel_study.py [--baseline DIR ...]
         [--kernels occ_pair,occ,window_read,marked_walk,sampled_walk]
-        [--paths chr1,chr20,grch38,markless,amino] [--pairs] [--out PATH]
+        [--paths chr1,chr20,grch38,markless,amino,modeb] [--pairs] [--out PATH]
 
 Builds (nvcc with the package's own flags, all started together):
 
@@ -35,7 +35,13 @@ path's first batch):
   524,288 queries, cap 8), walked by sampled_walk;
 - ``amino`` (20 Mres of seeded random amino acids, k = 5, SA ratio 8, no
   marks; bench.py's Swiss-Prot shape): the ranges of a 262,144-query batch
-  of drawn 12-mers, cap 8.
+  of drawn 12-mers, cap 8;
+- ``modeb`` (the chr1 index range-sharded 4 ways on the card, as
+  chip_smoke's phase 20 serves it): the 4 occ_pair_shard calls of a full
+  rank step, timed as one step by every build; Mode B's walk of a batch's
+  cap slots with the package's passes per round (``round_passes``) and
+  with each fixed count in ``WALK_PASSES``, over each (shards, SA ratio)
+  of ``WALK_LAYOUTS`` (mode_b_study).
 
 Each site: every build in turns (b1 .. bk, then bk .. b1, twice), 20
 launches each timed by chip_smoke's ``time_ms`` (L2 flushed by a read
@@ -100,6 +106,7 @@ ENTRIES = {
     "occ_pair.cu": {
         "occ_pair": [I32, P, I64, I32, I32, I32, P, P, P, P, I64, P, P, P],
         "occ": [I32, P, I64, I32, I32, I32, P, P, P, I64, P, P],
+        "occ_pair_shard": [I32, P, I64, I64, I64, I32, I32, I32, P, P, P, P, P, I64, P, P, P],
     },
     "window_read.cu": {"window_read": [I32, P, I64, P, I64, I32, P, P]},
     "backstep.cu": {
@@ -498,6 +505,182 @@ def time_site(libs: dict, kind: str, args, device, flush) -> dict:
     return {"max_abs_err": errs, "ms": {name: float(np.median(v)) for name, v in times.items()}, "turns_ms": times}
 
 
+# Fixed passes over the shards per round of Mode B's walk (walk_rounds),
+# timed against the package's round_passes and each other, on each (shards,
+# SA ratio) layout of the chr1 index (SA ratio 32: the ratio-8 sampled SA
+# cut to every fourth entry).
+WALK_PASSES = (1, 4, 12, 48)
+WALK_LAYOUTS = ((4, 8), (4, 32), (2, 8), (8, 8))
+
+
+def mode_b_study(libs: dict, device, rng, flush) -> dict:
+    """Mode B at chip_smoke phase 20's shape: the chr1 index (250 Mbp, k =
+    13, mark 1, SA ratio 8) range-sharded 4 ways on one card, a batch of
+    524,288 drawn reads.  The 4 occ_pair_shard calls of its first full rank
+    step, timed as one step (chip_smoke's time_ms, L2 flushed before it, the
+    card held busy until the host has issued the 4 launches) by every build
+    in turns, each build's largest error against the plain version
+    recorded.  The walk of its cap slots, for each layout of WALK_LAYOUTS
+    (the index shipped again over that many shards, at that SA ratio):
+    walk_rounds walks them whole with the package's round_passes and at
+    each fixed count of passes per round (round_passes patched), on the
+    host clock (synchronized), in turns (forward, then backward, twice),
+    its positions held equal to the narrow sampled_walk's; then, on the
+    first layout, one walk with the package's rule under the profiler:
+    device busy time, rounds, and the host time of each PyTorch operation
+    and of the sampled_walk_shard calls."""
+    from awry_tpu_torch.ops import counts_from_ranges
+    from awry_tpu_torch.parallel import ShardedFmEngine, make_mesh
+
+    text = cs.LETTERS[rng.integers(0, 4, size=cs.N_SYMBOLS, dtype=np.uint8)].tobytes()
+    index = build_from_records([("chr1_synthetic", text)], FmBuildArgs(
+        lookup_table_kmer_len=cs.KMER_LEN, locate_mark_ratio=1, suffix_array_compression_ratio=8))
+    starts = rng.integers(0, cs.N_SYMBOLS - cs.QLEN, size=cs.BATCH)
+    batch = [text[s : s + cs.QLEN] for s in starts.tolist()]
+    engine = ShardedFmEngine(index, make_mesh(devices=[device] * 4, shard_size=4))
+    ((slot, w, q, _),) = engine._slices(*engine._encode(batch))
+    calls: list = []
+    with cs.recording_kernel_inputs(calls, lambda name, a: name == "occ_pair_shard"):
+        lo, hi = slot.search(*engine._upload(slot, w, q))
+    step = [a for _, a in calls if a[3].shape[0] == cs.BATCH][:4]
+    plain = []
+    for a in step:
+        outs = (a[9].clone(), a[10].clone())
+        plain.append(kernels.occ_pair_shard_plain(*a[:9], *outs))
+    rank_step = {"requests": cs.BATCH, "max_abs_err": {}, "turns_ms": {name: [] for name in libs}}
+    for name, lib in libs.items():
+        with using(lib):
+            got = [kernels.occ_pair_shard(*a) for a in step]
+        rank_step["max_abs_err"][name] = max(cs.result_err(g, p) for g, p in zip(got, plain))
+    if rank_step["max_abs_err"]["new"] != 0:
+        raise AssertionError("occ_pair_shard disagrees with its plain version")
+    for name in (list(libs) + list(libs)[::-1]) * TURN_PAIRS:
+        with using(libs[name]):
+            rank_step["turns_ms"][name].append(cs.time_ms(lambda: [kernels.occ_pair_shard(*a) for a in step],
+                                                          device, REPS, flush, lead=cs.STEP_LEAD_CYCLES))
+    rank_step["ms"] = {name: float(np.median(v)) for name, v in rank_step["turns_ms"].items()}
+    log(json.dumps({"mode_b_rank_step": rank_step}))
+    rows = kernels.slot_rows(lo, counts_from_ranges(lo, hi), engine.locate_cap).reshape(-1)
+    del engine, slot
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(index, mark_bits=None, mark_milestones=None, text_sampled_sa=None, text_packed=None)
+    out = {"rank_step": rank_step, "rows": int(rows.shape[0]), "layouts": {}}
+    for shards, sa_ratio in WALK_LAYOUTS:
+        layout = dataclasses.replace(base, sampled_sa=np.ascontiguousarray(base.sampled_sa[:: sa_ratio // 8]),
+                                     sa_ratio=sa_ratio)
+        engine = ShardedFmEngine(layout, make_mesh(devices=[device] * shards, shard_size=shards))
+        slot = engine._slots[0]
+        out["layouts"][f"{shards} shards, SA ratio {sa_ratio}"] = walk_schedules(slot, layout, rows, device)
+        if (shards, sa_ratio) == WALK_LAYOUTS[0]:
+            out["profile"] = walk_profile(slot, rows, device)
+        del engine, slot
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({"mode_b_walk": {k: v for k, v in out.items() if k != "rank_step"}}))
+    return out
+
+
+def _walk_positions(slot, rows):
+    """walk_rounds of rows over the slot's shards, then the SA read: the
+    text positions and the rounds."""
+    from awry_tpu_torch.parallel import sharding
+
+    dev = slot.dev
+    pos, steps, rounds = sharding.walk_rounds(slot.shards, slot.total_blocks, rows, dev.num_planes,
+                                              dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.bwt_len)
+    got = kernels._text_pos_mod(kernels._sa_values(kernels.window_read, dev.sampled_sa, pos // dev.sa_ratio), steps,
+                                dev.bwt_len)
+    return got, rounds
+
+
+@contextlib.contextmanager
+def _fixed_passes(passes):
+    """round_passes patched to ``passes`` per round (None: the package's)."""
+    from awry_tpu_torch.parallel import sharding
+
+    real = sharding.round_passes
+    if passes is not None:
+        sharding.round_passes = lambda *a: passes
+    try:
+        yield
+    finally:
+        sharding.round_passes = real
+
+
+def walk_schedules(slot, index, rows, device) -> dict:
+    """The walk of rows over the slot's shards with the package's
+    round_passes ("rule") and each fixed count of WALK_PASSES, each held
+    equal to the narrow sampled_walk, then timed whole on the host clock in
+    turns: rounds, passes and live rows of each round, the median and every
+    turn."""
+    dev = slot.dev
+    narrow = to_device(index, device)
+    want = kernels.sampled_walk(narrow.blocks, rows, narrow.prefix_sums, narrow.codes, narrow.c2i,
+                                narrow.num_planes, narrow.alphabet.ambiguity_idx, dev.sa_ratio, dev.sampled_sa,
+                                dev.bwt_len)
+    del narrow
+    names = ["rule", *WALK_PASSES]
+    out = {}
+    for name in names:
+        with _fixed_passes(None if name == "rule" else name):
+            got, rounds = _walk_positions(slot, rows)
+        if not torch.equal(got, want):
+            raise AssertionError(f"Mode B walk ({name} passes per round) differs from the narrow sampled_walk")
+        out[str(name)] = {"rounds": len(rounds), "passes": sum(p for _, p in rounds),
+                          "rows_per_round": [r for r, _ in rounds], "passes_per_round": [p for _, p in rounds],
+                          "turns_ms": []}
+    for name in (names + names[::-1]) * 2:
+        with _fixed_passes(None if name == "rule" else name):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            _walk_positions(slot, rows)
+            torch.cuda.synchronize(device)
+        out[str(name)]["turns_ms"].append((time.perf_counter() - t0) * 1e3)
+    for row in out.values():
+        row["ms"] = float(np.median(row["turns_ms"]))
+    log(json.dumps({f"walk, {len(slot.shards)} shards, SA ratio {dev.sa_ratio}":
+                    {k: {"ms": v["ms"], "rounds": v["rounds"], "passes": v["passes"]} for k, v in out.items()}}))
+    return out
+
+
+def walk_profile(slot, rows, device) -> dict:
+    """One walk with the package's round_passes under the profiler: wall
+    time, device busy time, the sampled_walk_shard calls' host time, and the
+    host time of each PyTorch operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = {"n": 0, "host_ms": 0.0}
+    real = kernels.sampled_walk_shard
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        r = real(*a, **kw)
+        calls["host_ms"] += (time.perf_counter() - t0) * 1e3
+        calls["n"] += 1
+        return r
+
+    timed.launches = 0  # the wrapper counts its launches here while patched
+    kernels.sampled_walk_shard = timed
+    try:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, rounds = _walk_positions(slot, rows)
+            torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        kernels.sampled_walk_shard = real
+    events = prof.key_averages()
+    top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:14]
+    return {
+        "wall_ms": wall, "rounds": rounds, "sampled_walk_shard_calls": calls,
+        "device_ms": sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3,
+        "ops": [{"op": e.key, "count": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                 "self_device_ms": getattr(e, "self_device_time_total", 0) / 1e3} for e in top],
+    }
+
+
 def _query_steps(call):
     """The longest walk (LF steps) of each query's live slots."""
     blocks, starts, counts, cap, prefix_sums, codes, c2i, nplanes, amb, sa_ratio, sampled_sa, bwt_len = call
@@ -570,7 +753,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", action="append", default=[], help="directory holding other kernel sources")
     parser.add_argument("--kernels", default="occ_pair,occ", help=f"comma-separated, of {','.join(KINDS)}")
-    parser.add_argument("--paths", default="chr1,chr20", help="comma-separated: chr1, chr20, grch38, markless, amino")
+    parser.add_argument("--paths", default="chr1,chr20",
+                        help="comma-separated: chr1, chr20, grch38, markless, amino, modeb")
     parser.add_argument("--pairs", action="store_true", help="occ_pair on chr1 pairs moved into one / two blocks")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="write the full record as JSON here")
@@ -595,6 +779,11 @@ def main() -> int:
     rows, sums = [], {}
     for path in args.paths.split(","):
         t0 = time.perf_counter()
+        if path == "modeb":
+            sums["modeb"] = mode_b_study(libs, device, rng, flush)
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
         sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38, "markless": record_markless,
                  "amino": record_amino}[path](device, rng, kinds)
         log(f"{path}: {len(sites)} sites recorded in {time.perf_counter() - t0:.1f} s")

@@ -7,6 +7,8 @@ machine without JAX:
 
 On the CPU every test here skips."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -31,10 +33,14 @@ def card():
     return torch.device("cuda", 0)
 
 
+def _random_text(alphabet, n, rng) -> bytes:
+    letters = b"ACGT" if alphabet is Alphabet.NUCLEOTIDE else b"ACDEFGHIKLMNPQRSTVWY"
+    return bytes(rng.choice(np.frombuffer(letters, dtype=np.uint8), size=n))
+
+
 def _device_index(alphabet, n, seed, mark_ratio=1):
     rng = np.random.default_rng(seed)
-    letters = b"ACGT" if alphabet is Alphabet.NUCLEOTIDE else b"ACDEFGHIKLMNPQRSTVWY"
-    seq = bytes(rng.choice(np.frombuffer(letters, dtype=np.uint8), size=n))
+    seq = _random_text(alphabet, n, rng)
     args = FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4, locate_mark_ratio=mark_ratio)
     return to_device(build_from_records([("x", seq)], args), "cpu"), rng
 
@@ -588,40 +594,70 @@ def _windows(nb, shards):
 @pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
 @pytest.mark.parametrize("shards", [1, 2, 3, 5])
 def test_shard_kernels_match_plain(card, alphabet, shards):
-    """occ_pair_shard and backstep_shard on views of one table equal their
-    plain versions, give 0 outside their window, and summed over the shards
-    equal one narrow occ_pair and backstep launch, with row 0, the last
-    row, block and shard edges, and positions below 0 and past the end."""
-    tdev, rng = _device_index(alphabet, 60_000, 43 + shards)
-    blocks = tdev.blocks.to(card)
+    """occ_pair_shard and sampled_walk_shard on views of one table equal
+    their plain versions call by call, write only what their window owns,
+    and over the windows give one narrow rank.update_range and (in rounds)
+    the narrow sampled_walk's positions, with row 0, the last row, block
+    and shard edges, and positions below 0 and past the end."""
+    from awry_tpu_torch.ops import rank
+    from awry_tpu_torch.parallel.sharding import Shard, walk_rounds
+
+    rng = np.random.default_rng(43 + shards)
+    index = build_from_records([("x", _random_text(alphabet, 60_000, rng))],
+                               FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4,
+                                           suffix_array_compression_ratio=16))
+    markless = dataclasses.replace(index, mark_bits=None, mark_milestones=None, text_sampled_sa=None, mark_ratio=0)
+    tdev = to_device(markless, card)
+    blocks = tdev.blocks
     nb = blocks.shape[0]
-    codes, c2i, prefix = tdev.codes.to(card), tdev.c2i.to(card), tdev.prefix_sums.to(card)
-    v, mo, amb = tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx
+    codes, c2i, prefix = tdev.codes, tdev.c2i, tdev.prefix_sums
+    v, amb = tdev.num_planes, alphabet.ambiguity_idx
     windows = _windows(nb, shards)
     top = nb * 256
     edges = [0, top - 1, top, top + 17, -1, -300, 255, 256]
     edges += [e for lo, hi in windows for e in (lo * 256 - 1, lo * 256, hi * 256 - 1, hi * 256)]
     pos = torch.from_numpy(np.concatenate([edges, rng.integers(0, top, size=20_000)]).astype(np.int64)).to(card)
-    pos_b = pos + torch.from_numpy(rng.integers(0, 9, size=pos.shape[0])).to(card)
+    starts, ends = pos + 1, pos + torch.from_numpy(rng.integers(0, 9, size=pos.shape[0])).to(card)
     sym = torch.from_numpy(rng.integers(-1, alphabet.cardinality + 1, size=pos.shape[0]).astype(np.int32)).to(card)
-    want_pair = kernels.occ_pair(blocks, pos, pos_b, sym, codes, v)
-    want_step = kernels.backstep(blocks, pos, prefix, codes, c2i, v, mo, amb)
-    sums = [torch.zeros_like(t) for t in (*want_pair, *want_step)]
+    want = rank.update_range(tdev, starts, ends, sym.clamp(0, alphabet.cardinality - 1))
+    new = (torch.full_like(starts, -1), torch.full_like(ends, -1))
+    cpu = lambda *ts: [t.cpu() for t in ts]  # noqa: E731
     for lo, hi in windows:
         view = blocks[lo:hi]
-        n0, n1 = kernels.occ_pair_shard.launches, kernels.backstep_shard.launches
-        pair = kernels.occ_pair_shard(view, lo, nb, pos, pos_b, sym, codes, v)
-        step = kernels.backstep_shard(view, lo, nb, pos, prefix, codes, c2i, v, mo, amb)
-        assert kernels.occ_pair_shard.launches == n0 + 1 and kernels.backstep_shard.launches == n1 + 1
-        cpu = (view.cpu(), lo, nb)
-        plain_pair = kernels.occ_pair_shard_plain(*cpu, pos.cpu(), pos_b.cpu(), sym.cpu(), codes.cpu(), v)
-        plain_step = kernels.backstep_shard_plain(*cpu, pos.cpu(), prefix.cpu(), codes.cpu(), c2i.cpu(), v, mo, amb)
-        for got, want in zip((*pair, *step), (*plain_pair, *plain_step)):
-            assert torch.equal(got.cpu(), want)
-        for acc, got in zip(sums, (*pair, *step)):
-            acc += got
-    for acc, want in zip(sums, (*want_pair, *want_step)):
-        assert torch.equal(acc, want)
+        before = cpu(*new)
+        n0 = kernels.occ_pair_shard.launches
+        kernels.occ_pair_shard(view, lo, nb, starts, ends, sym, codes, prefix, v, *new)
+        assert kernels.occ_pair_shard.launches == n0 + (1 if hi > lo else 0)
+        plain = kernels.occ_pair_shard_plain(*cpu(view), lo, nb, *cpu(starts, ends, sym, codes, prefix), v, *before)
+        for got, w in zip(new, plain):
+            assert torch.equal(got.cpu(), w)
+    assert torch.equal(new[0], want[0]) and torch.equal(new[1], want[1])
+
+    shs = [Shard(blocks[lo:hi], lo, codes, c2i, prefix) for lo, hi in windows]
+    rows = torch.cat([torch.arange(0, tdev.bwt_len, 7, device=card), torch.tensor([0, 16, -2], device=card),
+                      torch.tensor([tdev.bwt_len - 1, tdev.bwt_len + 4], device=card)])
+    walk = (v, amb, tdev.sa_ratio, tdev.bwt_len)
+    r, s = rows.clamp(0, tdev.bwt_len - 1), torch.from_numpy(rng.integers(0, 3, size=rows.shape[0])).to(card)
+    for i, sh in enumerate(shs):
+        before = cpu(r, s)
+        n0 = kernels.sampled_walk_shard.launches
+        # Every other shard's launch is given its zeroed work counter.
+        cursor = torch.zeros(1, dtype=torch.int64, device=card) if i % 2 else None
+        kernels.sampled_walk_shard(sh.blocks, sh.first_block, nb, r, s, prefix, codes, c2i, *walk, cursor=cursor)
+        assert kernels.sampled_walk_shard.launches == n0 + (1 if sh.blocks.shape[0] else 0)
+        plain = kernels.sampled_walk_shard_plain(*cpu(sh.blocks), sh.first_block, nb, *before, *cpu(prefix, codes, c2i),
+                                                 *walk)
+        assert torch.equal(r.cpu(), plain[0]) and torch.equal(s.cpu(), plain[1])
+    with pytest.raises(ValueError, match="cursor"):
+        kernels.sampled_walk_shard(blocks, 0, nb, r, s, prefix, codes, c2i, *walk,
+                                   cursor=torch.zeros(1, dtype=torch.int32, device=card))
+    final, steps, rounds = walk_rounds(shs, nb, rows, *walk)
+    assert [n for n, _ in rounds] == sorted((n for n, _ in rounds), reverse=True)
+    got = kernels._text_pos_mod(kernels._sa_values(kernels.window_read, tdev.sampled_sa, final // tdev.sa_ratio),
+                                steps, tdev.bwt_len)
+    want_pos = kernels.sampled_walk(blocks, rows, prefix, codes, c2i, v, amb, tdev.sa_ratio, tdev.sampled_sa,
+                                    tdev.bwt_len)
+    assert torch.equal(got, want_pos)
 
 
 @pytest.mark.cuda
@@ -638,11 +674,11 @@ def test_multi_device_engines_on_card(card):
     single = FmQueryEngine(index, device=card)
     queries = [seq[s : s + 25] for s in rng.integers(0, len(seq) - 25, size=5000)] + [seq[10:14], b"ACNGT", b""]
     want = single.count_locate_arrays(queries, cap=8)
-    n0 = (kernels.occ_pair_shard.launches, kernels.backstep_shard.launches)
+    n0 = (kernels.occ_pair_shard.launches, kernels.sampled_walk_shard.launches)
     mode_b = ShardedFmEngine(index, make_mesh(devices=[card] * 4, shard_size=4))
     for got, w in zip(mode_b.count_locate_arrays(queries), want, strict=True):
         assert np.array_equal(got, w)
-    assert kernels.occ_pair_shard.launches > n0[0] and kernels.backstep_shard.launches > n0[1]
+    assert kernels.occ_pair_shard.launches > n0[0] and kernels.sampled_walk_shard.launches > n0[1]
     assert np.array_equal(mode_b.count_batch(queries), want[0])
     mode_a = ShardedFmEngine(index, make_mesh(devices=[card] * 4))
     for got, w in zip(mode_a.count_locate_arrays(queries), want, strict=True):

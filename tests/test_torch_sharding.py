@@ -3,11 +3,14 @@
 ``FmQueryEngine(mesh=...)`` over meshes of ``["cpu"] * n`` slots (every
 kernel through its plain version), against the JAX package's host engine
 and its ``ShardedFmEngine`` on the conftest's 8 virtual CPU devices; then
-the shard kernels' plain versions, summed over the shards, against the
-narrow kernels' on the whole table.  Twins of tests/test_sharding.py; every
+the shard kernels' plain versions over the windows against
+rank.update_range and sampled_walk_plain on the whole table, the merge of
+a shard on another device and the walk's step cap.  Twins of tests/test_sharding.py; every
 comparison is exact, inputs come from numpy seeds."""
 
 import dataclasses
+import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,9 +21,19 @@ import awry_tpu.host_engine as he
 import awry_tpu_torch as pt
 from awry_tpu.parallel import ShardedFmEngine as JaxSharded
 from awry_tpu_torch.alphabet import code_to_index_table, index_to_code_table
-from awry_tpu_torch.ops import FmQueryEngine, build_fused_blocks, from_numpy_index, fused_row_words, kernels
+from awry_tpu_torch.ops import (
+    FmQueryEngine,
+    build_fused_blocks,
+    from_numpy_index,
+    fused_row_words,
+    kernels,
+    rank,
+    to_device,
+)
 from awry_tpu_torch.parallel import DATA_AXIS, SHARD_AXIS, ShardedFmEngine, make_mesh
 from awry_tpu_torch.parallel.distributed import make_global_mesh
+from awry_tpu_torch.parallel import sharding
+from awry_tpu_torch.parallel.sharding import MAX_ROUND_PASSES, Shard, merge_owned, round_passes, walk_rounds
 
 from .conftest import random_seq
 from .oracle import kmer_position_map, localize
@@ -211,52 +224,214 @@ def _shard_windows(nb, shards):
     return [(min(i * per, nb), min((i + 1) * per, nb)) for i in range(shards)]
 
 
+def _random_rank_tables(a, rng, nb):
+    blocks = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(nb, fused_row_words(a))).astype(np.int32))
+    codes = torch.from_numpy(index_to_code_table(a).astype(np.int32))
+    prefix = torch.from_numpy(np.sort(rng.integers(0, 2**31, size=a.cardinality + 1)).astype(np.int64))
+    return blocks, codes, prefix
+
+
+UNSET = -(2**62)  # no range update writes this
+
+
 @pytest.mark.parametrize("alphabet", ["NUCLEOTIDE", "AMINO"])
 @pytest.mark.parametrize("shards", [1, 2, 3, 5])
 def test_shard_plain_versions_sum_to_narrow(alphabet, shards):
-    """occ_pair_shard_plain and backstep_shard_plain summed over the shards
-    equal occ_pair_plain and backstep_plain on the whole table, with row 0,
-    the last row, block and shard edges, and positions below 0 and past the
-    end among the requests."""
+    """occ_pair_shard_plain over the windows writes each endpoint of the
+    step's new ranges once, from the window that owns its (clamped) block,
+    and together they equal rank.update_range on the whole table, with row
+    0, the last row, block and shard edges, and positions below 0 and past
+    the end among the requests; a symbol outside the alphabet is clamped."""
     a = pt.Alphabet[alphabet]
     rng = np.random.default_rng(40 + shards)
     nb = 13
-    rw = fused_row_words(a)
-    blocks = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(nb, rw)).astype(np.int32))
-    codes = torch.from_numpy(index_to_code_table(a).astype(np.int32))
-    c2i = torch.from_numpy(code_to_index_table(a).astype(np.int32))
-    prefix = torch.from_numpy(np.sort(rng.integers(0, 2**31, size=a.cardinality + 1)).astype(np.int64))
+    blocks, codes, prefix = _random_rank_tables(a, rng, nb)
     windows = _shard_windows(nb, shards)
     top = nb * 256
     edges = [0, top - 1, top, top + 17, -1, -300, 255, 256, 257]
     edges += [e for lo, hi in windows for e in (lo * 256 - 1, lo * 256, hi * 256 - 1, hi * 256)]
     pos = torch.tensor(edges + rng.integers(-5, top + 5, size=200).tolist(), dtype=torch.int64)
-    pos_b = pos + torch.from_numpy(rng.integers(0, 600, size=pos.shape[0]))
-    sym = torch.from_numpy(rng.integers(-1, a.cardinality + 1, size=pos.shape[0]).astype(np.int32))
-    nplanes, mark_offset = a.num_planes, a.num_planes * 8 + a.cardinality
+    starts = pos + 1
+    ends = pos + torch.from_numpy(rng.integers(0, 600, size=pos.shape[0]))
+    sym = torch.from_numpy(rng.integers(0, a.cardinality, size=pos.shape[0]).astype(np.int32))
+    nplanes = a.num_planes
+    narrow = SimpleNamespace(wide=False, blocks=blocks, codes=codes, num_planes=nplanes, prefix_sums=prefix)
+    want = rank.update_range(narrow, starts, ends, sym)
 
-    want_a, want_b = kernels.occ_pair_plain(blocks, pos, pos_b, sym, codes, nplanes)
-    want_step, want_mark = kernels.backstep_plain(blocks, pos, prefix, codes, c2i, nplanes, mark_offset,
-                                                  a.ambiguity_idx)
-    sum_a = torch.zeros_like(want_a)
-    sum_b = torch.zeros_like(want_b)
-    sum_step = torch.zeros_like(want_step)
-    sum_mark = torch.zeros_like(want_mark)
-    owners = torch.zeros(pos.shape[0], dtype=torch.int64)
+    new = (torch.full_like(starts, UNSET), torch.full_like(ends, UNSET))
     for lo, hi in windows:
         view = blocks[lo:hi]
-        oa, ob = kernels.occ_pair_shard(view, lo, nb, pos, pos_b, sym, codes, nplanes)
-        step, mark = kernels.backstep_shard(view, lo, nb, pos, prefix, codes, c2i, nplanes, mark_offset,
-                                            a.ambiguity_idx)
-        assert oa.dtype == torch.int32 and step.dtype == torch.int64 and mark.dtype == torch.int32
-        blk = pos.clamp(0, top - 1) >> 8
-        owned = (blk >= lo) & (blk < hi)
-        owners += owned.to(torch.int64)
-        assert not oa[~owned].any() and not step[~owned].any() and not mark[~owned].any()
-        sum_a += oa
-        sum_b += ob
-        sum_step += step
-        sum_mark += mark
-    assert bool((owners == 1).all())
-    assert torch.equal(sum_a, want_a) and torch.equal(sum_b, want_b)
-    assert torch.equal(sum_step, want_step) and torch.equal(sum_mark, want_mark)
+        alone = kernels.occ_pair_shard(view, lo, nb, starts, ends, sym, codes, prefix, nplanes,
+                                       torch.full_like(starts, UNSET), torch.full_like(ends, UNSET))
+        assert all(t.dtype == torch.int64 for t in alone)
+        for out, p, prev in zip(alone, (starts - 1, ends), new):
+            written = out != UNSET
+            assert torch.equal(written, kernels.owned_by(p, lo, hi - lo, top))
+            assert not (written & (prev != UNSET)).any()  # every entry has one owner
+        new = kernels.occ_pair_shard(view, lo, nb, starts, ends, sym, codes, prefix, nplanes, *new)
+        for out, got in zip(alone, new):
+            assert torch.equal(got[out != UNSET], out[out != UNSET])
+    assert torch.equal(new[0], want[0]) and torch.equal(new[1], want[1])
+
+    wild = sym.clone()
+    wild[::7] = -1
+    wild[3::7] = a.cardinality + 2
+    clamped = wild.clamp(0, a.cardinality - 1)
+    for lo, hi in windows:
+        got = kernels.occ_pair_shard(blocks[lo:hi], lo, nb, starts, ends, wild, codes, prefix, nplanes,
+                                     torch.zeros_like(starts), torch.zeros_like(ends))
+        ref = kernels.occ_pair_shard(blocks[lo:hi], lo, nb, starts, ends, clamped, codes, prefix, nplanes,
+                                     torch.zeros_like(starts), torch.zeros_like(ends))
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _sharded_tables(alphabet, seed, n, shards, sa_ratio):
+    """A mark-less index's device tables on the CPU and its shards over
+    the ceil-split windows (views of one fused table)."""
+    _, tidx, _ = _build(alphabet, seed, n=n, kmer_len=2, sa_ratio=sa_ratio)
+    markless = dataclasses.replace(tidx, mark_bits=None, mark_milestones=None, text_sampled_sa=None, mark_ratio=0)
+    dev = to_device(markless, "cpu")
+    nb = dev.blocks.shape[0]
+    shards = [Shard(dev.blocks[lo:hi], lo, dev.codes, dev.c2i, dev.prefix_sums) for lo, hi in _shard_windows(nb, shards)]
+    return dev, shards
+
+
+def _walk_args(dev):
+    return dev.num_planes, dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.bwt_len
+
+
+@pytest.mark.parametrize("alphabet", [jx.Alphabet.NUCLEOTIDE, jx.Alphabet.AMINO])
+@pytest.mark.parametrize("shards", [1, 2, 3, 5])
+def test_sampled_walk_shard_plain_in_rounds(alphabet, shards):
+    """sampled_walk_shard_plain in rounds over the windows (walk_rounds)
+    gives sampled_walk_plain's text positions for every row of a small
+    index (row 0 and the sampled rows among them, and walks that cross
+    every window several times), and the round sizes only fall."""
+    dev, shs = _sharded_tables(alphabet, 50 + shards, 2900, shards, 32)
+    nb = dev.blocks.shape[0]
+    rows = torch.cat([torch.arange(dev.bwt_len), torch.tensor([0, -3, dev.bwt_len + 5, 32, 64])])
+    pos, steps, rounds = walk_rounds(shs, nb, rows, *_walk_args(dev))
+    round_rows = [r for r, _ in rounds]
+    assert not bool((pos % dev.sa_ratio).any())
+    got = kernels._text_pos_mod(kernels._sa_values(kernels.window_read_plain, dev.sampled_sa, pos // dev.sa_ratio),
+                                steps, dev.bwt_len)
+    want = kernels.sampled_walk_plain(dev.blocks, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
+                                      dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.sampled_sa, dev.bwt_len)
+    assert torch.equal(got, want)
+    assert round_rows == sorted(round_rows, reverse=True) and round_rows[0] < rows.shape[0]
+    if shards == 1:
+        assert len(round_rows) == 1
+        return
+    # The longest walk's rows, by narrow LF steps, visit every window twice or more.
+    row = int(torch.argmax(steps))
+    path = [row]
+    for _ in range(int(steps[row])):
+        stepped, _ = kernels.backstep_plain(dev.blocks, torch.tensor([path[-1]]), dev.prefix_sums, dev.codes,
+                                            dev.c2i, dev.num_planes, dev.mark_offset, dev.alphabet.ambiguity_idx)
+        path.append(int(stepped[0]))
+    owner = [next(i for i, sh in enumerate(shs) if sh.first_block <= p >> 8 < sh.first_block + sh.blocks.shape[0])
+             for p in path[:-1]]
+    runs = [owner[0]] + [y for x, y in zip(owner, owner[1:]) if x != y]
+    visits = [runs.count(i) for i in range(len(shs))]
+    assert min(v for v, sh in zip(visits, shs) if sh.blocks.shape[0]) >= 2, visits
+
+
+@pytest.mark.parametrize(
+    "live, shards, sa_ratio, survival, want",
+    [
+        # The first round of a chr1-scale batch's cap slots (4 shards, SA
+        # ratio 8): a pass ends at a sample 1 time in 3.625.
+        (458_694, 4, 8, None, math.ceil(math.log(458_694 / math.log(2)) / -math.log(1 - 1 / 3.625))),
+        (458_694, 4, 32, None, math.ceil(math.log(458_694 / math.log(2)) / -math.log(1 - 1 / 12.625))),
+        (1000, 1, 8, None, 1),  # one window: a pass ends only at a sample
+        (1, 4, 8, None, 2),
+        (10, 4, 8, 0.5, 4),  # ln(10 / ln 2) / ln 2 = 3.85
+        (10, 4, 8, 0.0, 1),
+        (10, 4, 8, 1.0, MAX_ROUND_PASSES),  # no row finished: the cap
+        (10**9, 4, 8, 0.9999, MAX_ROUND_PASSES),
+    ],
+)
+def test_round_passes(live, shards, sa_ratio, survival, want):
+    """round_passes: the passes after which a round's rows are all sampled
+    with probability one half, from the model of random walks in a first
+    round and from the last round's survival after it, within [1,
+    MAX_ROUND_PASSES]."""
+    assert round_passes(live, shards, sa_ratio, survival) == want
+
+
+def test_walk_rounds_sizes_rounds_by_survival(monkeypatch):
+    """Each round after the first gets round_passes of the share of the
+    first round's rows that stayed live per pass over the rounds before;
+    the first gets the model's (no survival).  Rounds are held to 2 passes
+    here so that there are several."""
+    dev, shs = _sharded_tables(jx.Alphabet.NUCLEOTIDE, 71, 2900, 4, 32)
+    asked = []
+
+    def short(live, num_shards, sa_ratio, survival=None):
+        asked.append((live, num_shards, sa_ratio, survival))
+        return min(2, round_passes(live, num_shards, sa_ratio, survival))
+
+    monkeypatch.setattr(sharding, "round_passes", short)
+    rows = torch.arange(dev.bwt_len)
+    pos, steps, rounds = walk_rounds(shs, dev.blocks.shape[0], rows, *_walk_args(dev))
+    assert len(rounds) >= 3 and not bool((pos % dev.sa_ratio).any())
+    assert [(r, p) for r, p in rounds] == [(a[0], min(2, round_passes(*a))) for a in asked]
+    assert asked[0][1:] == (4, dev.sa_ratio, None)
+    for k, a in enumerate(asked[1:], 1):
+        assert a[3] == pytest.approx((rounds[k][0] / rounds[0][0]) ** (1 / sum(p for _, p in rounds[:k])))
+
+
+def test_merge_owned_matches_in_place():
+    """A shard on another device works on copies: its rank-step buffers and
+    its walked rows, merged back by the window test (merge_owned), equal
+    the in-place writes of a shard on the slot's device."""
+    dev, shs = _sharded_tables(jx.Alphabet.NUCLEOTIDE, 60, 2900, 3, 16)
+    nb = dev.blocks.shape[0]
+    rng = np.random.default_rng(61)
+    starts = torch.from_numpy(rng.integers(-3, dev.bwt_len + 3, size=500))
+    ends = starts + torch.from_numpy(rng.integers(0, 300, size=500))
+    sym = torch.from_numpy(rng.integers(0, 6, size=500).astype(np.int32))
+    in_place = (torch.full_like(starts, UNSET), torch.full_like(ends, UNSET))
+    merged = tuple(t.clone() for t in in_place)
+    for sh in shs:
+        args = (sh.blocks, sh.first_block, nb, starts, ends, sym, sh.codes, sh.prefix_sums, dev.num_planes)
+        kernels.occ_pair_shard(*args, *in_place)
+        a, b = kernels.occ_pair_shard(*args, torch.empty_like(starts), torch.empty_like(ends))
+        merged = (merge_owned(merged[0], a, starts - 1, sh, nb * 256), merge_owned(merged[1], b, ends, sh, nb * 256))
+    assert torch.equal(merged[0], in_place[0]) and torch.equal(merged[1], in_place[1])
+    assert not (merged[0] == UNSET).any()
+
+    rows = torch.from_numpy(rng.integers(0, dev.bwt_len, size=700))
+    r, s = rows.clone(), torch.from_numpy(rng.integers(0, 3, size=700))
+    r2, s2 = r.clone(), s.clone()
+    tail = (dev.prefix_sums, dev.codes, dev.c2i, *_walk_args(dev))
+    for sh in shs:
+        kernels.sampled_walk_shard(sh.blocks, sh.first_block, nb, r, s, *tail)
+        rr, ss = kernels.sampled_walk_shard(sh.blocks, sh.first_block, nb, r2.clone(), s2.clone(), *tail)
+        r2, s2 = merge_owned(r2, rr, r2, sh, dev.bwt_len), merge_owned(s2, ss, r2, sh, dev.bwt_len)
+    assert torch.equal(r, r2) and torch.equal(s, s2)
+    assert bool((s > 0).any()) and not torch.equal(r, rows)
+
+
+def test_walk_rounds_step_cap_raises():
+    """A walk that never reaches a sampled row (a corrupt index: every row
+    holds one symbol and LF maps each row to itself) raises once its rows
+    have taken bwt_len steps, as the single-device walk does."""
+    a = pt.Alphabet.NUCLEOTIDE
+    nb, v, sym_a = 4, a.num_planes, 1
+    code = int(index_to_code_table(a)[sym_a])
+    blocks = np.zeros((nb, fused_row_words(a)), dtype=np.int64)
+    for p in range(v):
+        blocks[:, p * 8 : (p + 1) * 8] = -1 if (code >> p) & 1 else 0
+    blocks[:, v * 8 + sym_a] = np.arange(nb) * 256
+    blocks = torch.from_numpy(blocks.astype(np.int32))
+    prefix = torch.zeros(a.cardinality + 1, dtype=torch.int64)
+    codes = torch.from_numpy(index_to_code_table(a).astype(np.int32))
+    c2i = torch.from_numpy(code_to_index_table(a).astype(np.int32))
+    stepped, _ = kernels.backstep_plain(blocks, torch.arange(nb * 256), prefix, codes, c2i, v, v * 8 + a.cardinality,
+                                        a.ambiguity_idx)
+    assert torch.equal(stepped, torch.arange(nb * 256))  # LF is the identity
+    shs = [Shard(blocks[lo:hi], lo, codes, c2i, prefix) for lo, hi in _shard_windows(nb, 2)]
+    rows = torch.tensor([0, 8, 3, 700])
+    with pytest.raises(RuntimeError, match="1024 LF steps without reaching a sampled row"):
+        walk_rounds(shs, nb, rows, v, a.ambiguity_idx, 8, nb * 256)
