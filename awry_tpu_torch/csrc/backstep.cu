@@ -8,7 +8,12 @@
 //                SA values).
 //
 // marked_walk: the whole marked LF walk of each row to its text position,
-// one thread per row (below).
+// one thread per row (below).  marked_walk_ranges: the same walks fed by
+// query ranges, as the classic path asks for them: slot (q, j) of a [B,
+// cap] output walks row starts[q] + j for j < min(counts[q], cap), and every
+// other slot holds the walk of row 0, which is what the flat walk of the
+// classic path's padded rows wrote there (awry_tpu/ops/locate.py
+// count_locate_capped_t: "row 0 is sampled").
 //
 // sampled_walk: the reference's row-sampled LF walk of each row to its text
 // position, for indexes without marks (loaded from .awry files): LF steps
@@ -24,10 +29,10 @@
 //
 // backstep replaces awry_tpu/ops/sweep.py:_backstep_kernel_anchored as
 // backstep_mark_sweep runs it (one visit) and its blocked twin
-// _backstep_kernel; marked_walk replaces the same kernel as
-// marked_walk_sweep runs it (mark_ratio visits, the glue between them and
-// the marked SA read), with the semantics of awry_tpu/ops/locate.py
-// _marked_walk.  sampled_walk replaces awry_tpu/ops/locate.py
+// _backstep_kernel; marked_walk and marked_walk_ranges replace the same
+// kernel (sweep.py:1123) as marked_walk_sweep (sweep.py:883) runs it
+// (mark_ratio visits, the glue between them and the marked SA read), with
+// the semantics of awry_tpu/ops/locate.py:74 _marked_walk.  sampled_walk replaces awry_tpu/ops/locate.py
 // _row_sampled_walk: a jax.lax.while_loop of rank.backstep gathers, the
 // per-visit work of _backstep_kernel with another stop rule, whose
 // jnp.any stays on the TPU; walked by visits from the host, the port would
@@ -68,6 +73,53 @@
 // lane.  Lanes of a warp that finish early idle until the warp's longest
 // walk ends; marked walks are short (at most mark_ratio - 1 steps).
 //
+// Bound of the marked walks: the distinct sectors the walks touch (a
+// stepping visit: the mark word's sector, the V plane sectors and the
+// stepped symbol's milestone sector; a final visit: the mark words' and
+// the mark milestone's sectors) and the marked SA words they end on, with
+// their I/O; and the chain floor, the longest walk (mark_ratio - 1 steps)
+// at the per-step time of a one-row walk.  A federation partition at mark
+// 32 (64 Mbp: its 40 MB of rows stay in the 50 MB L2) asks far more of L2
+// than of device memory: its 655,360 verify rows read 1.62 GB of sectors
+// summed over visits (0.0172 ms bound from 57 MB of distinct sectors; chain
+// floor 0.028 ms, 31 steps at 0.9 us).
+//
+// Why the flat walk stays one thread per row with the mark word read first
+// (measured in turns on one H100 80GB HBM3 at 700 W, PERF.md section 6,
+// scripts/rank_kernel_study.py --paths pangenome,grch38; L2 flushed): it
+// is bound by the sector requests it makes of L2, not by its chain or its
+// idle lanes.  Half the rows take 0.255 of 0.426 ms, the rows sorted by
+// walk length 0.451; its variable part runs at about 150 G sectors/s, near
+// the 159 G/s its padded rows reached.  Every design that read the planes
+// with the mark word (one round trip per step) or refilled lanes as walks
+// ended lost at mark 32 and at mark 4 (GRCh38, 1 Gbp: 0.1317 ms, bound
+// 0.050): one trip per step with all mark words 0.531 / 0.153 ms, with the
+// planes' upper halves on demand 0.4705; lanes refilled per free lane at
+// 72-94 registers 0.500-0.522; a thread per row reading the planes with
+// the mark word 0.4497 / 0.1532 (the final visit's planes: +5 % sectors);
+// 64 registers forced 0.5706 (spills).  Fewer round trips buy nothing
+// where the sectors are the limit.
+//
+// marked_walk_ranges: the refill schedule of the sampled walks (below)
+// with the marked stop rule (walk_kernel, Stop::kMarked), so the idle
+// slots of the classic path's [B, cap] output are not walked.  A warp
+// hands out a tile's live slots only once all its lanes are free
+// (per free lane 0.4687 / 0.1881 ms against 0.4481 / 0.1702 in
+// lockstep).  A lane's iteration is one round trip of its phase
+// (MarkedPhase): the probe (the row's mark word, eager: with its planes and
+// milestones), the planes of an unmarked row (lazy), the final row's mark
+// words, or its SA word; eager from mark 8 on (mark 32: 0.4483 eager, 0.4868
+// lazy; mark 4: 0.1784 eager, 0.1703 lazy).  Row 0's walk, the idle slots'
+// value, is walked once per launch by lane 0 of the warp that claims tile 0
+// and published in the cursor buffer; after its last tile each warp claims
+// tiles again and writes their idle slots (coalesced) once row 0's value is
+// there.  Measured against the parent's padded rows walked by its flat
+// kernel behind the slot_rows glue: cap 8, mark 4 (524,288 ranges, 524,318
+// live slots of 4,194,304) 0.1698 ms against 0.2968; cap 2, mark 32
+// (524,288 live of 1,048,576) 0.4483 against 0.4467.  One thread per slot
+// (idle lanes idle, one walking row 0 per warp) lost at cap 8 (0.2421) and
+// won at cap 2 (0.4067).
+//
 // sampled_walk needs no row read to stop: the stop rule is the row's own
 // number (a mask for a power-of-two sa_ratio, else a multiplier computed on
 // the host), so each step reads only the plane and milestone sectors, and
@@ -79,7 +131,7 @@
 // the longest walk's chain of round trips.
 //
 // Design of the sampled walks: persistent warps that refill their lanes
-// as walks end (sampled_walk_kernel).  The grid is what fits the card at
+// as walks end (walk_kernel).  The grid is what fits the card at
 // once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  A warp claims a
 // tile of 32 queries (one per lane) with one atomic on a cursor the caller
 // zeroes; a warp-scan of min(count, cap) numbers the tile's live slots, the
@@ -111,11 +163,11 @@
 // walks' 3.7 M steps of 4 sectors each (about 2.5 TB/s of scattered sector
 // reads, the rows cold after the flush), and about 0.07 ms does not (the
 // launch and the tail of long walks: emptying the 1 % of queries whose walks
-// exceed 34 steps saves 0.025-0.034 ms).  marked_walk on this LF core: 0.1317
-// ms against the parent's 0.1328 at the GRCh38-shaped site.
+// exceed 34 steps saves 0.025-0.034 ms).
 //
-// The wide variants (backstep_wide, marked_walk_wide, sampled_walk_wide and
-// its range-fed entry: texts of 2^32 symbols and more, ops/wide.py) are the
+// The wide variants (backstep_wide, marked_walk_wide and its range-fed
+// entry, sampled_walk_wide and its range-fed entry: texts of 2^32 symbols
+// and more, ops/wide.py) are the
 // same kernels instantiated with kWide.  A wide index keeps this row layout
 // with each row's milestones and mark milestone counted from the first block
 // of its group of 2^group_shift blocks; the LF core adds the group's base for
@@ -148,10 +200,11 @@
 // sectors they read), 8 B in per row (its row), 8 B more in (its steps)
 // and 16 B out per walked row.
 //
-// ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 46 / 60,
-// backstep_wide 64 / 72; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
-// range-fed sampled walk 65 / 78, wide 64 / 80; the flat-row walk 64 / 77,
-// wide 64 / 79; sampled_walk_shard 63 / 76.  No spills.
+// ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 48 / 68,
+// backstep_wide 42 / 67; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
+// range-fed marked walk 72 / 80, wide 76 / 91; the range-fed sampled walk
+// 65 / 78, wide 64 / 80; the flat-row walk 64 / 77, wide 64 / 79;
+// sampled_walk_shard 63 / 76.  No spills.
 
 #include <cuda_runtime.h>
 
@@ -330,28 +383,44 @@ __device__ __forceinline__ int64_t lf_of(const RowWords<V>& x, const RowAt& r, c
   return c.sentinel ? 0 : base + (int64_t)mile + count;
 }
 
-// The row's mark bit, and into mark_rank the marked rows strictly before
-// it: the mark milestone plus the mark words' bits [0, row) of the block.
+// A row's 8 mark words, its mark milestone and (wide) its group's mark base.
+struct MarkWords {
+  uint32_t w[8];
+  uint32_t mile;
+  int64_t base;
+};
+
 template <bool kWide = false>
-__device__ __forceinline__ uint32_t mark_of(const RowAt& r, int mark_offset, MarkRank<kWide>& mark_rank,
-                                            const WalkTables& t) {
-  uint32_t marks[8];
+__device__ __forceinline__ void load_marks(const RowAt& r, int mark_offset, MarkWords& m, const WalkTables& t) {
   const uint2* mp = reinterpret_cast<const uint2*>(r.row + mark_offset);
 #pragma unroll
   for (int w = 0; w < 4; ++w) {
-    const uint2 m = __ldg(mp + w);
-    marks[2 * w] = m.x;
-    marks[2 * w + 1] = m.y;
+    const uint2 v = __ldg(mp + w);
+    m.w[2 * w] = v.x;
+    m.w[2 * w + 1] = v.y;
   }
+  m.mile = __ldg(r.row + mark_offset + 8);
+  m.base = 0;
+  if constexpr (kWide) m.base = ldg64(t.mark_base + (r.blk >> t.group_shift));
+}
+
+// The marked rows strictly before the row: the mark milestone (plus the
+// group's base) and the mark words' bits [0, row) of the block.
+template <bool kWide = false>
+__device__ __forceinline__ MarkRank<kWide> mark_rank_of(const MarkWords& m, const RowAt& r) {
   const uint32_t before = (1u << r.bit) - 1u;  // exclusive: bits [0, bit)
-  mark_rank = __ldg(r.row + mark_offset + 8);
-  if constexpr (kWide) mark_rank += ldg64(t.mark_base + (r.blk >> t.group_shift));
+  MarkRank<kWide> mark_rank = m.mile;
+  if constexpr (kWide) mark_rank += m.base;
 #pragma unroll
   for (uint32_t w = 0; w < 8; ++w) {
-    const uint32_t m = w < r.word ? kFull : (w == r.word ? before : 0u);
-    mark_rank += __popc(marks[w] & m);
+    const uint32_t mask = w < r.word ? kFull : (w == r.word ? before : 0u);
+    mark_rank += __popc(m.w[w] & mask);
   }
-  return (pick(marks, r.word) >> r.bit) & 1u;
+  return mark_rank;
+}
+
+__device__ __forceinline__ uint32_t mark_bit_of(const MarkWords& m, const RowAt& r) {
+  return (pick(m.w, r.word) >> r.bit) & 1u;
 }
 
 // mark: (mark_rank << 1) | mark_bit as uint32 (narrow: 31 bits of the
@@ -366,18 +435,18 @@ __global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64
   const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
   RowWords<V> x;
   load_row(r, x);
-  MarkRank<kWide> mark_rank;
-  const uint32_t mark_bit = mark_of<kWide>(r, mark_offset, mark_rank, t);
+  MarkWords m;
+  load_marks<kWide>(r, mark_offset, m, t);
   stepped[i] = lf_of<V, kWide>(x, r, tab, t);
-  mark[i] = (mark_rank << 1) | mark_bit;
+  mark[i] = (mark_rank_of<kWide>(m, r) << 1) | mark_bit_of(m, r);
 }
 
-// text_pos[i] of row rows[i] by the marked walk: a row is final when its
-// mark bit is set (its mark word is read first, so a marked row skips its
-// planes) or on the walk's last visit (steps == mark_ratio - 1); the SA
-// index is the final row's mark rank (narrow: 31 bits of it, as backstep
-// packs it), clamped into the marked SA; text_pos = sa + steps, less
-// bwt_len when that reaches it.
+// text_pos[i] of row rows[i] by the marked walk, one thread per row: a row
+// is final when its mark bit is set (its mark word is read first, so a
+// marked row skips its planes) or on the walk's last visit (steps ==
+// mark_ratio - 1); the SA index is the final row's mark rank (narrow: 31
+// bits of it, as backstep packs it), clamped into the marked SA; text_pos
+// = sa + steps, less bwt_len when that reaches it.
 template <int V, bool kWide>
 __global__ void marked_walk_kernel(const WalkTables t, int mark_offset, int mark_ratio,
                                    const int64_t* __restrict__ rows, int64_t n, int64_t* __restrict__ text_pos) {
@@ -390,8 +459,9 @@ __global__ void marked_walk_kernel(const WalkTables t, int mark_offset, int mark
     const RowAt r = row_at(t.blocks, t.nbits, t.row_words, pos);
     const uint32_t word = __ldg(r.row + mark_offset + r.word);
     if (((word >> r.bit) & 1u) || steps + 1 >= mark_ratio) {
-      MarkRank<kWide> mark_rank;
-      mark_of<kWide>(r, mark_offset, mark_rank, t);
+      MarkWords m;
+      load_marks<kWide>(r, mark_offset, m, t);
+      const MarkRank<kWide> mark_rank = mark_rank_of<kWide>(m, r);
       int64_t s;
       if constexpr (kWide) {
         const int64_t idx = mark_rank < 0 ? 0 : (mark_rank >= t.sa_len ? t.sa_len - 1 : mark_rank);
@@ -535,6 +605,101 @@ __device__ __forceinline__ bool shard_step(const WalkTables& t, const RowSamplin
   return smp.sampled(pos) || (pos >> 8) - w.first_block >= w.local_blocks || (int64_t)steps >= t.bwt_len;
 }
 
+// The marked walks' stop rule: a marked row, or the walk's last visit
+// (steps == mark_ratio - 1); eager: whether a visit reads its row's planes
+// beside its mark word (one round trip per step, the planes wasted on the
+// final visit) or after it (two, the marked walk's parent schedule).
+struct MarkedWalk {
+  int mark_offset;
+  int mark_ratio;
+  int eager;
+};
+
+// What a marked walk's lane reads on its next iteration: its row's mark
+// word (kProbe; eager: with the planes and milestones), the planes and
+// milestones of a row found unmarked (kPlanes, lazy only), the final row's
+// mark words and mark milestone (kMarks), or its SA word (kRead: pos then
+// holds the word's index).
+enum MarkedPhase : uint32_t { kProbe, kPlanes, kMarks, kRead };
+
+// A visit's loaded words: a row's planes and milestones, or its mark words
+// (one lane reads one of them per iteration, so they share registers).
+template <int V>
+union VisitWords {
+  RowWords<V> row;
+  MarkWords marks;
+};
+
+// Row 0's walk in a range-fed launch: its text position and a flag, both in
+// the launch's cursor buffer (words 2 and 3), set once by the lane that
+// walked it and read by every warp before it writes idle slots.
+__device__ __forceinline__ void publish_idle(unsigned long long* cursor, int64_t value) {
+  atomicExch(cursor + 2, (unsigned long long)value);
+  __threadfence();
+  atomicExch(cursor + 3, 1ull);
+}
+
+__device__ __forceinline__ int64_t await_idle(unsigned long long* cursor) {
+  while (atomicAdd(cursor + 3, 0ull) == 0) __nanosleep(200);
+  __threadfence();
+  return (int64_t)atomicAdd(cursor + 2, 0ull);
+}
+
+// One lane's iteration of a marked walk: one round trip, the loads of its
+// phase.  A probe that finds the row marked, or on the walk's last visit,
+// moves to kMarks; an eager probe of an unmarked row steps at once (LF, the
+// sentinel row stepping to 0, clamped into the table as row_at does), a
+// lazy one moves to kPlanes, which steps.  kMarks turns the final row's
+// mark rank (31 bits of it narrow, as backstep packs it; clamped into the
+// marked SA) into the SA word's index; kRead writes the text position (to
+// out[slot], or published as the idle value) and ends the walk.
+template <int V, bool kWide>
+__device__ __forceinline__ void marked_step(const WalkTables& t, const MarkedWalk& mw, const CodeStep* tab,
+                                            bool& walking, uint32_t& phase, WalkRow<kWide>& pos,
+                                            WalkRow<kWide>& steps, int64_t slot, int64_t* __restrict__ out,
+                                            unsigned long long* cursor) {
+  const bool read = walking && phase == kRead;
+  const bool probe = walking && phase == kProbe;
+  const bool planes = walking && (phase == kPlanes || (probe && mw.eager));
+  const bool marks = walking && phase == kMarks;
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, read ? 0 : (int64_t)pos);
+  int64_t sa = 0;
+  uint32_t word = 0;
+  VisitWords<V> x;
+  if (read) sa = sa_at<kWide>(t, (int64_t)pos);
+  if (probe) word = __ldg(r.row + mw.mark_offset + r.word);
+  if (planes) load_row<V, true>(r, x.row);  // upper halves on demand: < 1 % either way
+  if (marks) load_marks<kWide>(r, mw.mark_offset, x.marks, t);
+  if (read) {
+    const int64_t v = text_pos_of(sa, steps, t.bwt_len);
+    if (slot >= 0) {
+      out[slot] = v;
+    } else {
+      publish_idle(cursor, v);
+    }
+    walking = false;
+  } else if (marks) {
+    const MarkRank<kWide> rank = mark_rank_of<kWide>(x.marks, r);
+    int64_t idx;
+    if constexpr (kWide) {
+      idx = rank < 0 ? 0 : (rank >= t.sa_len ? t.sa_len - 1 : rank);
+    } else {
+      idx = (int64_t)(rank & 0x7FFFFFFFu);
+      idx = idx >= t.sa_len ? t.sa_len - 1 : idx;
+    }
+    pos = (WalkRow<kWide>)idx;
+    phase = kRead;
+  } else if (probe && (((word >> r.bit) & 1u) || (int64_t)steps + 1 >= mw.mark_ratio)) {
+    phase = kMarks;
+  } else if (planes) {
+    pos = clamp_row<WalkRow<kWide>>(lf_of<V, kWide>(x.row, r, tab, t), t.nbits);
+    ++steps;
+    phase = kProbe;
+  } else if (probe) {
+    phase = kPlanes;
+  }
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -565,23 +730,34 @@ __device__ __forceinline__ TileQuery tile_query(int64_t tile, const int64_t* __r
   return {starts[q], (uint32_t)(c < 0 ? 0 : (c > cap ? cap : c)), 0};
 }
 
-// The sampled walks of nq queries' live slots into out[nq, cap] (flat rows:
-// kRows, starts = rows, cap = 1; a shard's rows: kShard, the rows and steps
-// of w walked in place, cap = 1), by persistent warps that refill lanes as
-// walks end (the head of this file).  cursor: one 64-bit counter, zero.
-template <int V, Feed kFeed, bool kWide>
-__global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
-    const WalkTables t, const Sampling<kWide> smp, const int64_t* __restrict__ starts,
+// What ends a lane's walk: a sampled row (the row-sampled walks) or a
+// marked row or the walk's last visit (the marked walks).
+enum class Stop { kSampled, kMarked };
+
+// The walks of nq queries' live slots into out[nq, cap] (flat rows: kRows,
+// starts = rows, cap = 1; a shard's rows: kShard, the rows and steps of w
+// walked in place, cap = 1), by persistent warps that refill lanes as walks
+// end (the head of this file).  The marked stop rule (kMarked: mw) runs on
+// the range feed only.  cursor: 64-bit counters, zero (one; four for a
+// marked walk: the tile claims, the idle pass's claims, and row 0's walk
+// and its flag).
+template <int V, Stop kStop, Feed kFeed, bool kWide>
+__global__ void __launch_bounds__(kThreads) walk_kernel(
+    const WalkTables t, const Sampling<kWide> smp, const MarkedWalk mw, const int64_t* __restrict__ starts,
     const int64_t* __restrict__ counts, int64_t nq, int cap, unsigned long long* __restrict__ cursor,
     int64_t* __restrict__ out, const ShardWalk w) {
   constexpr bool kRanges = kFeed == Feed::kRanges;
+  constexpr bool kMarked = kStop == Stop::kMarked;
   __shared__ CodeStep tab[1 << V];
   load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
   const int64_t ntiles = (nq + 31) >> 5;
-  // An idle slot's value: the walk of row 0, which is sampled.
-  const int64_t idle = kRanges ? text_pos_of(sa_at<kWide>(t, 0), 0, t.bwt_len) : 0;
+  // A sampled walk's idle slot holds the walk of row 0, which is sampled.
+  const int64_t idle = kRanges && !kMarked ? text_pos_of(sa_at<kWide>(t, 0), 0, t.bwt_len) : 0;
+  // A marked walk's rows clamp into the table (row_at); a sampled walk's
+  // below bwt_len.
+  const int64_t row_limit = kMarked ? t.nbits : t.bwt_len;
 
   // The next tile (claimed, its queries loading) and the claim of the one
   // after it run a tile ahead of the tile being handed out.
@@ -600,8 +776,18 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
   bool walking = false;
   WalkRow<kWide> pos = 0, steps = 0;
   int64_t slot = 0;
+  uint32_t phase = kProbe;
+  // A range-fed marked walk: lane 0 of the warp that claimed tile 0 walks
+  // row 0 first, once for the launch; its position fills the idle slots.
+  if (kMarked && kRanges && next_tile == 0 && lane == 0) {
+    walking = true;
+    slot = -1;
+  }
   for (;;) {
     unsigned free_lanes = __ballot_sync(kFull, !walking);
+    // A marked walk's warp hands out slots only once all its lanes are free
+    // (a tile walked in lockstep): faster than per free lane (PERF.md).
+    if (kMarked && free_lanes != kFull) free_lanes = 0;
     while (free_lanes && more) {
       if (handed == tile_live) {
         if (next_tile >= ntiles) {
@@ -618,7 +804,7 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
         }
         tile_live = __shfl_sync(kFull, incl, 31);
         handed = 0;
-        if (kRanges) {
+        if (kRanges && !kMarked) {
           // The tile's idle slots, in order: a coalesced pass of cap stores per lane.
           for (int s = lane; s < 32 * cap; s += 32) {
             const unsigned ql = (unsigned)(s / cap);
@@ -645,23 +831,47 @@ __global__ void __launch_bounds__(kThreads) sampled_walk_kernel(
       if constexpr (kFeed == Feed::kShard) steps0 = __shfl_sync(kFull, cur.steps, q);
       if (!walking && want < tile_live) {
         const uint32_t j = want - before;
-        pos = clamp_row<WalkRow<kWide>>(start + j, t.bwt_len);
+        pos = clamp_row<WalkRow<kWide>>(start + j, row_limit);
         steps = steps0;
         slot = (tile * 32 + q) * cap + j;
+        phase = kProbe;
         walking = true;
       }
       handed = min(tile_live, handed + __popc(free_lanes));
       free_lanes = __ballot_sync(kFull, !walking);
     }
-    if (!__any_sync(kFull, walking)) break;
-    if constexpr (kFeed == Feed::kShard) {
+    if constexpr (kMarked) {
+      if (!__any_sync(kFull, walking)) break;
+      marked_step<V, kWide>(t, mw, tab, walking, phase, pos, steps, slot, out, cursor);
+    } else if constexpr (kFeed == Feed::kShard) {
+      if (!__any_sync(kFull, walking)) break;
       if (walking && shard_step<V>(t, smp, tab, w, pos, steps)) {
         w.rows[slot] = pos;
         w.steps[slot] = steps;
         walking = false;
       }
-    } else if (walking && sampled_step<V, kWide>(t, smp, tab, pos, steps, out + slot)) {
-      walking = false;
+    } else {
+      if (!__any_sync(kFull, walking)) break;
+      if (walking && sampled_step<V, kWide>(t, smp, tab, pos, steps, out + slot)) walking = false;
+    }
+  }
+  if constexpr (kMarked && kRanges) {
+    // The idle slots, tile by tile (claims on cursor[1]), once row 0's walk
+    // has ended: a coalesced pass of cap stores per lane.
+    unsigned long long value = 0;
+    if (lane == 0) value = (unsigned long long)await_idle(cursor);
+    const int64_t row0 = (int64_t)__shfl_sync(kFull, value, 0);
+    for (;;) {
+      unsigned long long c = 0;
+      if (lane == 0) c = atomicAdd(cursor + 1, 1ull);
+      const int64_t it = (int64_t)__shfl_sync(kFull, c, 0);
+      if (it >= ntiles) break;
+      const uint32_t live = tile_query<kFeed>(it, starts, counts, nq, cap, lane, w, smp, t.bwt_len).live;
+      for (int s = lane; s < 32 * cap; s += 32) {
+        const unsigned ql = (unsigned)(s / cap);
+        const uint32_t ql_live = __shfl_sync(kFull, live, ql);
+        if (it * 32 + ql < nq && (uint32_t)(s - (int)ql * cap) >= ql_live) out[it * 32 * cap + s] = row0;
+      }
     }
   }
 }
@@ -695,13 +905,14 @@ unsigned persistent_grid(Kernel kernel, int device, std::atomic<int> (&fit)[kMax
   return (unsigned)(need < resident ? need : resident);
 }
 
-template <int V, Feed kFeed, bool kWide>
-void launch_sampled(int device, const WalkTables& t, uint64_t sa_ratio, const void* starts, const void* counts,
-                    int64_t nq, int cap, void* cursor, void* out, const ShardWalk& w, cudaStream_t st) {
+template <int V, Stop kStop, Feed kFeed, bool kWide>
+void launch_walk_kernel(int device, const WalkTables& t, uint64_t sa_ratio, const MarkedWalk& mw, const void* starts,
+                        const void* counts, int64_t nq, int cap, void* cursor, void* out, const ShardWalk& w,
+                        cudaStream_t st) {
   static std::atomic<int> fit[kMaxDevices];
-  auto kernel = sampled_walk_kernel<V, kFeed, kWide>;
+  auto kernel = walk_kernel<V, kStop, kFeed, kWide>;
   kernel<<<persistent_grid(kernel, device, fit, nq), kThreads, 0, st>>>(
-      t, Sampling<kWide>::of(sa_ratio), (const int64_t*)starts, (const int64_t*)counts, nq, cap,
+      t, Sampling<kWide>::of(sa_ratio), mw, (const int64_t*)starts, (const int64_t*)counts, nq, cap,
       (unsigned long long*)cursor, (int64_t*)out, w);
 }
 
@@ -740,6 +951,36 @@ int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offse
   return (int)cudaGetLastError();
 }
 
+// A walk of either stop rule: the flat-row walk (kRows; starts = rows,
+// counts unused), the range-fed walk, or a shard's walk in place (kShard:
+// w).  sa_ratio: the sampled walks' (1 for the marked walks); mw: the
+// marked walks' stop rule.
+template <Stop kStop, Feed kFeed, bool kWide>
+int launch_walk(int device, const WalkTables& t, int nplanes, uint64_t sa_ratio, const MarkedWalk& mw,
+                const void* starts, const void* counts, int64_t nq, int cap, void* cursor, void* out, void* stream,
+                const ShardWalk& w = {}) {
+  set_device(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nq > 0) {
+    if (nplanes == 3) {
+      launch_walk_kernel<3, kStop, kFeed, kWide>(device, t, sa_ratio, mw, starts, counts, nq, cap, cursor, out, w, st);
+    } else if (nplanes == 5) {
+      launch_walk_kernel<5, kStop, kFeed, kWide>(device, t, sa_ratio, mw, starts, counts, nq, cap, cursor, out, w, st);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+template <Feed kFeed, bool kWide>
+int launch_sampled_walk(int device, const WalkTables& t, int nplanes, uint64_t sa_ratio, const void* starts,
+                        const void* counts, int64_t nq, int cap, void* cursor, void* out, void* stream,
+                        const ShardWalk& w = {}) {
+  return launch_walk<Stop::kSampled, kFeed, kWide>(device, t, nplanes, sa_ratio, {}, starts, counts, nq, cap, cursor,
+                                                   out, stream, w);
+}
+
 template <bool kWide>
 int launch_marked_walk(int device, const WalkTables& t, int nplanes, int mark_offset, int mark_ratio,
                        const void* rows, int64_t n, void* text_pos, void* stream) {
@@ -759,24 +1000,12 @@ int launch_marked_walk(int device, const WalkTables& t, int nplanes, int mark_of
   return (int)cudaGetLastError();
 }
 
-// The flat-row walk (kRows; starts = rows, counts unused), the range-fed
-// walk, or a shard's walk in place (kShard: w).
-template <Feed kFeed, bool kWide>
-int launch_sampled_walk(int device, const WalkTables& t, int nplanes, uint64_t sa_ratio, const void* starts,
-                        const void* counts, int64_t nq, int cap, void* cursor, void* out, void* stream,
-                        const ShardWalk& w = {}) {
-  set_device(device);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nq > 0) {
-    if (nplanes == 3) {
-      launch_sampled<3, kFeed, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, w, st);
-    } else if (nplanes == 5) {
-      launch_sampled<5, kFeed, kWide>(device, t, sa_ratio, starts, counts, nq, cap, cursor, out, w, st);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+template <bool kWide>
+int launch_marked_walk_ranges(int device, const WalkTables& t, int nplanes, int mark_offset, int mark_ratio,
+                              int eager, const void* starts, const void* counts, int64_t nq, int cap, void* cursor,
+                              void* out, void* stream) {
+  return launch_walk<Stop::kMarked, Feed::kRanges, kWide>(device, t, nplanes, 1, {mark_offset, mark_ratio, eager},
+                                                          starts, counts, nq, cap, cursor, out, stream);
 }
 
 }  // namespace
@@ -802,6 +1031,21 @@ extern "C" int awry_marked_walk(int device, const void* blocks, int64_t num_bloc
   const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
                                    ambiguity_idx, sampled_sa, sa_len, bwt_len);
   return launch_marked_walk<false>(device, t, nplanes, mark_offset, mark_ratio, rows, n, text_pos, stream);
+}
+
+// The range-fed marked walk (starts, counts: int64[nq]; out int64[nq,
+// cap]); eager: read a row's planes with its mark word (MarkedWalk);
+// cursor: four zeroed 64-bit counters.
+extern "C" int awry_marked_walk_ranges(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                       int nplanes, const void* prefix_sums, const void* codes,
+                                       const void* c2i, int mark_offset, int ambiguity_idx,
+                                       int mark_ratio, int eager, const void* sampled_sa, int64_t sa_len,
+                                       int64_t bwt_len, const void* starts, const void* counts, int64_t nq, int cap,
+                                       void* cursor, void* out, void* stream) {
+  const WalkTables t = walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i,
+                                   ambiguity_idx, sampled_sa, sa_len, bwt_len);
+  return launch_marked_walk_ranges<false>(device, t, nplanes, mark_offset, mark_ratio, eager, starts, counts, nq,
+                                          cap, cursor, out, stream);
 }
 
 // The flat-row walk (rows: int64[n]) and the range-fed walk (starts,
@@ -869,6 +1113,20 @@ extern "C" int awry_marked_walk_wide(int device, const void* blocks, int64_t num
                                          nullptr, sa_len, bwt_len),
                              card, ms_base, mark_base, group_shift, sampled_sa);
   return launch_marked_walk<true>(device, t, nplanes, mark_offset, mark_ratio, rows, n, text_pos, stream);
+}
+
+extern "C" int awry_marked_walk_ranges_wide(int device, const void* blocks, int64_t num_blocks, int row_words,
+                                            int nplanes, const void* prefix_sums, const void* codes,
+                                            const void* c2i, int card, const void* ms_base, const void* mark_base,
+                                            int group_shift, int mark_offset, int ambiguity_idx, int mark_ratio,
+                                            int eager, const void* sampled_sa, int64_t sa_len, int64_t bwt_len,
+                                            const void* starts, const void* counts, int64_t nq, int cap,
+                                            void* cursor, void* out, void* stream) {
+  const WalkTables t = widen(walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx,
+                                         nullptr, sa_len, bwt_len),
+                             card, ms_base, mark_base, group_shift, sampled_sa);
+  return launch_marked_walk_ranges<true>(device, t, nplanes, mark_offset, mark_ratio, eager, starts, counts, nq, cap,
+                                         cursor, out, stream);
 }
 
 extern "C" int awry_sampled_walk_wide(int device, const void* blocks, int64_t num_blocks, int row_words,

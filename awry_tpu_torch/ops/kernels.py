@@ -18,7 +18,11 @@ it replaces, its bound and its design):
 * ``marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes,
   mark_offset, ambiguity_idx, mark_ratio, sampled_sa, bwt_len)`` - the
   whole marked LF walk of each row to its text position in one launch
-  (``backstep``'s per-row code; the locate walk at mark ratio > 1).
+  (the locate walk at mark ratio > 1); ``marked_walk_ranges(blocks, starts,
+  counts, cap, ...)`` the same walks fed by query ranges into a ``[B,
+  cap]`` output, as the classic path asks for them (one kernel, the
+  sampled walk's refill schedule with the marked stop rule; counted under
+  ``marked_walk``).
 * ``sampled_walk(blocks, rows, prefix_sums, codes, c2i, nplanes,
   ambiguity_idx, sa_ratio, sampled_sa, bwt_len)`` - the reference's
   row-sampled LF walk of each row to its text position in one launch (the
@@ -31,8 +35,9 @@ The 64-bit engine (ops/wide.py) runs four wide variants, each its narrow
 twin's CUDA template instantiated over the group bases (``WideBases``: a
 wide index's rows hold milestones and mark milestones relative to their
 group of blocks) and 64-bit values: ``occ_pair_wide`` (int64 ranks),
-``backstep_wide`` (int64 step and whole mark rank), ``marked_walk_wide``
-(int64 SA values) and ``sampled_walk_wide`` / ``sampled_walk_ranges_wide``
+``backstep_wide`` (int64 step and whole mark rank), ``marked_walk_wide`` /
+``marked_walk_ranges_wide`` (int64 SA values) and ``sampled_walk_wide`` /
+``sampled_walk_ranges_wide``
 (64-bit rows, steps and SA values; a 64-bit quotient for an sa_ratio that is
 no power of two), and ``occ_wide`` (int64 ranks: the device k-mer build of a
 wide index).  Each keeps its plain version beside it, in int64.
@@ -164,6 +169,9 @@ def _lib():
             lib.awry_backstep.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, p, i64, p, p, p]
             lib.awry_marked_walk.restype = i32
             lib.awry_marked_walk.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, i32, p, i64, i64, p, i64, p, p]
+            lib.awry_marked_walk_ranges.restype = i32
+            lib.awry_marked_walk_ranges.argtypes = [i32, p, i64, i32, i32, p, p, p, i32, i32, i32, i32, p, i64, i64,
+                                                    p, p, i64, i32, p, p, p]
             walk = [i32, p, i64, i32, i32, p, p, p, i32, ctypes.c_uint32, p, i64, i64]
             lib.awry_sampled_walk.restype = i32
             lib.awry_sampled_walk.argtypes = [*walk, p, i64, p, p, p]
@@ -178,6 +186,9 @@ def _lib():
             lib.awry_backstep_wide.argtypes = [*head, p, i32, i32, i32, p, i64, p, p, p]
             lib.awry_marked_walk_wide.restype = i32
             lib.awry_marked_walk_wide.argtypes = [*head, p, i32, i32, i32, i32, p, i64, i64, p, i64, p, p]
+            lib.awry_marked_walk_ranges_wide.restype = i32
+            lib.awry_marked_walk_ranges_wide.argtypes = [*head, p, i32, i32, i32, i32, i32, p, i64, i64, p, p, i64, i32,
+                                                         p, p, p]
             wide_walk = [*head, i32, i32, ctypes.c_uint64, p, i64, i64]
             lib.awry_sampled_walk_wide.restype = i32
             lib.awry_sampled_walk_wide.argtypes = [*wide_walk, p, i64, p, p, p]
@@ -558,6 +569,26 @@ def marked_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_
                           mark_offset, ambiguity_idx, mark_ratio, sampled_sa, bwt_len)
 
 
+# The range-fed marked walks read a row's planes with its mark word (eager:
+# one round trip per LF step, the planes wasted on the walk's final visit)
+# from this mark ratio on, and after it below (two per step): eager won at
+# mark 32, lazy at mark 4 (PERF.md).
+MARKED_EAGER_FROM = 8
+
+
+def _check_marked(kernel: str, mark_ratio: int, sampled_sa, bwt_len: int) -> None:
+    """The marked walks' arguments: a walk of at least one visit and SA
+    values to read."""
+    if mark_ratio < 1 or sampled_sa.shape[0] < 1 or bwt_len < 1:
+        raise ValueError(f"{kernel}: mark_ratio={mark_ratio}, {sampled_sa.shape[0]} SA values, bwt_len={bwt_len}")
+
+
+def _check_ranges(kernel: str, starts, counts, cap: int) -> None:
+    _check("counts", counts, torch.int64, 1)
+    if counts.shape[0] != starts.shape[0]:
+        raise ValueError(f"{kernel}: {starts.shape[0]} starts, {counts.shape[0]} counts, cap={cap}")
+
+
 def marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: int, ambiguity_idx: int,
                 mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
     """int64[R]: the text position of each BWT row by the marked LF walk.
@@ -568,14 +599,13 @@ def marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset
     into the table) and ``sa + steps``, less ``bwt_len`` when that reaches
     it.  blocks .. ambiguity_idx as for backstep; sampled_sa: int32[S] the
     SA values of the marked rows in row order (uint32 bit patterns);
-    bwt_len: the BWT's length."""
+    bwt_len: the BWT's length.  One launch, a thread per row."""
     if _on_cpu(blocks, rows, prefix_sums, codes, c2i, sampled_sa):
         return marked_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx,
                                  mark_ratio, sampled_sa, bwt_len)
     _check_walk_args("marked_walk", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, mark_offset)
     _check("sampled_sa", sampled_sa, torch.int32, 1)
-    if mark_ratio < 1 or sampled_sa.shape[0] < 1 or bwt_len < 1:
-        raise ValueError(f"marked_walk: mark_ratio={mark_ratio}, {sampled_sa.shape[0]} SA values, bwt_len={bwt_len}")
+    _check_marked("marked_walk", mark_ratio, sampled_sa, bwt_len)
     r = rows.shape[0]
     out = torch.empty(r, dtype=torch.int64, device=blocks.device)
     if r:
@@ -591,6 +621,57 @@ def marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset
 
 
 marked_walk.launches = 0
+
+
+def marked_walk_ranges_plain(blocks, starts, counts, cap: int, prefix_sums, codes, c2i, nplanes: int,
+                             mark_offset: int, ambiguity_idx: int, mark_ratio: int, sampled_sa,
+                             bwt_len: int) -> torch.Tensor:
+    """Plain version of marked_walk_ranges: the padded rows (slot_rows)
+    walked by marked_walk_plain."""
+    rows = slot_rows(starts, counts, cap).reshape(-1)
+    return marked_walk_plain(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
+                             sampled_sa, bwt_len).reshape(-1, cap)
+
+
+def marked_walk_ranges(blocks, starts, counts, cap: int, prefix_sums, codes, c2i, nplanes: int, mark_offset: int,
+                       ambiguity_idx: int, mark_ratio: int, sampled_sa, bwt_len: int) -> torch.Tensor:
+    """int64[B, cap]: slot (q, j) holds the marked walk of row ``starts[q]
+    + j`` for j < min(counts[q], cap), and the walk of row 0 in every other
+    slot: marked_walk over slot_rows, in one launch that walks only the live
+    slots and row 0 once (counted under ``marked_walk.launches``, and under
+    this entry's own ``launches``).
+
+    starts, counts: int64[B] (counts 0 for an empty range; a query over
+    ``cap`` fills its cap slots); the rest as for marked_walk."""
+    if not 1 <= cap <= 1 << 20:
+        raise ValueError(f"marked_walk_ranges: cap={cap}")
+    if _on_cpu(blocks, starts, counts, prefix_sums, codes, c2i, sampled_sa):
+        return marked_walk_ranges_plain(blocks, starts, counts, cap, prefix_sums, codes, c2i, nplanes, mark_offset,
+                                        ambiguity_idx, mark_ratio, sampled_sa, bwt_len)
+    _check_walk_args("marked_walk_ranges", blocks, starts, prefix_sums, codes, c2i, nplanes, ambiguity_idx,
+                     mark_offset)
+    _check("sampled_sa", sampled_sa, torch.int32, 1)
+    _check_marked("marked_walk_ranges", mark_ratio, sampled_sa, bwt_len)
+    if blocks.shape[0] * 256 > 2**32:
+        raise ValueError(f"marked_walk_ranges: {blocks.shape[0]} blocks: rows past 32 bits take the wide entry")
+    _check_ranges("marked_walk_ranges", starts, counts, cap)
+    b = starts.shape[0]
+    out = torch.empty((b, cap), dtype=torch.int64, device=blocks.device)
+    if b:
+        cursor = torch.zeros(4, dtype=torch.int64, device=blocks.device)
+        rc = _lib().awry_marked_walk_ranges(
+            blocks.device.index, blocks.data_ptr(), blocks.shape[0], blocks.shape[1], nplanes,
+            prefix_sums.data_ptr(), codes.data_ptr(), c2i.data_ptr(), mark_offset, ambiguity_idx, mark_ratio,
+            int(mark_ratio >= MARKED_EAGER_FROM), sampled_sa.data_ptr(), sampled_sa.shape[0], bwt_len,
+            starts.data_ptr(), counts.data_ptr(), b, cap, cursor.data_ptr(), out.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "marked_walk_ranges")
+        marked_walk.launches += 1
+        marked_walk_ranges.launches += 1
+    return out
+
+
+marked_walk_ranges.launches = 0
 
 
 # -- sampled_walk --------------------------------------------------------------
@@ -907,9 +988,7 @@ def marked_walk_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, np
     _check_walk_args("marked_walk_wide", blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, mark_offset)
     _check_bases("marked_walk_wide", blocks, bases, codes.shape[0], marks=True)
     _check("sampled_sa", sampled_sa, torch.int64, 1)
-    if mark_ratio < 1 or sampled_sa.shape[0] < 1 or bwt_len < 1:
-        raise ValueError(f"marked_walk_wide: mark_ratio={mark_ratio}, {sampled_sa.shape[0]} SA values, "
-                         f"bwt_len={bwt_len}")
+    _check_marked("marked_walk_wide", mark_ratio, sampled_sa, bwt_len)
     r = rows.shape[0]
     out = torch.empty(r, dtype=torch.int64, device=blocks.device)
     if r:
@@ -924,6 +1003,51 @@ def marked_walk_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, np
 
 
 marked_walk_wide.launches = 0
+
+
+def marked_walk_ranges_wide_plain(blocks, bases: WideBases, starts, counts, cap: int, prefix_sums, codes, c2i,
+                                  nplanes: int, mark_offset: int, ambiguity_idx: int, mark_ratio: int, sampled_sa,
+                                  bwt_len: int) -> torch.Tensor:
+    """Plain version of marked_walk_ranges_wide: the padded rows walked by
+    marked_walk_wide_plain."""
+    rows = slot_rows(starts, counts, cap).reshape(-1)
+    return marked_walk_wide_plain(blocks, bases, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx,
+                                  mark_ratio, sampled_sa, bwt_len).reshape(-1, cap)
+
+
+def marked_walk_ranges_wide(blocks, bases: WideBases, starts, counts, cap: int, prefix_sums, codes, c2i,
+                            nplanes: int, mark_offset: int, ambiguity_idx: int, mark_ratio: int, sampled_sa,
+                            bwt_len: int) -> torch.Tensor:
+    """int64[B, cap]: marked_walk_ranges over a wide index, in one launch
+    (counted under ``marked_walk_wide.launches`` and this entry's own)."""
+    if not 1 <= cap <= 1 << 20:
+        raise ValueError(f"marked_walk_ranges_wide: cap={cap}")
+    if _on_cpu(blocks, bases.milestones, bases.marks, starts, counts, prefix_sums, codes, c2i, sampled_sa):
+        return marked_walk_ranges_wide_plain(blocks, bases, starts, counts, cap, prefix_sums, codes, c2i, nplanes,
+                                             mark_offset, ambiguity_idx, mark_ratio, sampled_sa, bwt_len)
+    _check_walk_args("marked_walk_ranges_wide", blocks, starts, prefix_sums, codes, c2i, nplanes, ambiguity_idx,
+                     mark_offset)
+    _check_bases("marked_walk_ranges_wide", blocks, bases, codes.shape[0], marks=True)
+    _check("sampled_sa", sampled_sa, torch.int64, 1)
+    _check_marked("marked_walk_ranges_wide", mark_ratio, sampled_sa, bwt_len)
+    _check_ranges("marked_walk_ranges_wide", starts, counts, cap)
+    b = starts.shape[0]
+    out = torch.empty((b, cap), dtype=torch.int64, device=blocks.device)
+    if b:
+        cursor = torch.zeros(4, dtype=torch.int64, device=blocks.device)
+        rc = _lib().awry_marked_walk_ranges_wide(
+            *_wide_head(blocks, bases, prefix_sums, codes, c2i, nplanes), bases.marks.data_ptr(), bases.shift,
+            mark_offset, ambiguity_idx, mark_ratio, int(mark_ratio >= MARKED_EAGER_FROM), sampled_sa.data_ptr(),
+            sampled_sa.shape[0], bwt_len, starts.data_ptr(), counts.data_ptr(), b, cap, cursor.data_ptr(),
+            out.data_ptr(), _stream(blocks.device),
+        )
+        _launch_check(rc, "marked_walk_ranges_wide")
+        marked_walk_wide.launches += 1
+        marked_walk_ranges_wide.launches += 1
+    return out
+
+
+marked_walk_ranges_wide.launches = 0
 
 
 def _check_wide_sampling(kernel: str, blocks, bases: WideBases, codes, sa_ratio: int, sampled_sa, bwt_len: int):

@@ -4,11 +4,13 @@ Rows whose SA value is a multiple of the mark ratio are marked (mark words
 and a mark milestone ride in the fused block rows), and ``text_sampled_sa``
 holds the SA values of the marked rows in row order.  Walking back one LF
 step lowers the text position by one, so a marked row is reached within
-``mark_ratio - 1`` steps: the walk is one ``marked_walk`` launch, each row
-walked to its mark by one thread, which then reads the marked SA value at
-the final row's mark rank (awry_tpu/ops/locate.py _marked_walk, sweep.py
-marked_walk_sweep).  At mark ratio 1 every row is marked and the mark rank
-is the row: the walk is one SA read.
+``mark_ratio - 1`` steps: ``lf_walk`` walks given rows in one
+``marked_walk`` launch, whose lanes each walk a row to its mark and read the
+marked SA value at the final row's mark rank, then take the next row
+(awry_tpu/ops/locate.py _marked_walk, sweep.py marked_walk_sweep); the
+classic path's capped locate walks its ranges' live slots in one
+``marked_walk_ranges`` launch.  At mark ratio 1 every row is marked and the
+mark rank is the row: the walk is one SA read.
 
 An index without marks (loaded from a ``.awry`` file) locates by the
 reference's row-sampled walk instead: each row walked by LF steps until its
@@ -20,8 +22,9 @@ sync: a walk that cannot end (a corrupt index) writes -1, which the
 engine's assembly refuses.
 
 On a wide index (ops/wide.py) the walks take the kernels' wide variants
-(``marked_walk_wide``, ``sampled_walk_wide``), and the mark-1 SA read is a
-window_read of two int32 words per int64 SA value.
+(``marked_walk_wide``, ``marked_walk_ranges_wide``, ``sampled_walk_wide``),
+and the mark-1 SA read is a window_read of two int32 words per int64 SA
+value.
 
 Ragged per-query outputs are two-phase: counts -> offsets -> flat fill.
 """
@@ -108,5 +111,13 @@ def count_locate_capped_t(
             dev.alphabet.ambiguity_idx, dev.sa_ratio, dev.sampled_sa, dev.bwt_len,
         )
         return counts, text_pos, starts, ends
-    text_pos = lf_walk(dev, kernels.slot_rows(starts, counts, cap).reshape(-1))
-    return counts, text_pos.reshape(-1, cap), starts, ends
+    if dev.mark_ratio == 1:
+        text_pos = lf_walk(dev, kernels.slot_rows(starts, counts, cap).reshape(-1))
+        return counts, text_pos.reshape(-1, cap), starts, ends
+    walk = (dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.mark_offset, dev.alphabet.ambiguity_idx,
+            dev.mark_ratio, dev.text_sampled_sa, dev.bwt_len)
+    if dev.wide:
+        text_pos = kernels.marked_walk_ranges_wide(dev.blocks, dev.bases, starts, counts, cap, *walk)
+    else:
+        text_pos = kernels.marked_walk_ranges(dev.blocks, starts, counts, cap, *walk)
+    return counts, text_pos, starts, ends

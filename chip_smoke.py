@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, exactly, at main-path shapes: window_read (k = 1, 2, 3, 15, k = 4
    over 4 slots per lane, and k = 5, which has no kernel of its own) over a
    1 GB SA-sized table, occ_pair, backstep and marked_walk (marks 2, 4 and
-   32, over a random marked SA) over chr1-sized nucleotide rows and
+   32, over a random marked SA; its range-fed entry marked_walk_ranges on
+   524,288 ranges of 0-11 rows at cap 8, 8 and 2) over chr1-sized
+   nucleotide rows and
    Swiss-Prot-sized amino rows (occ_pair on random pairs and on the serving
    shape, ~98 % of pairs in one block), occ over them at the k-mer build's
    full chunk, on random positions and in the build's sorted order
@@ -21,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    report (phases 6, 9 and 12) also holds every kernel call the path made
    on its first batch (and the k-mer build's full chunk) against the plain
    version on the same inputs.  Then the 64-bit engine's variants
-   (occ_pair_wide, backstep_wide, marked_walk_wide at marks 4 and 32,
+   (occ_pair_wide, backstep_wide, marked_walk_wide and
+   marked_walk_ranges_wide at marks 2, 4 and 32,
    sampled_walk_wide flat and range-fed at SA ratios 8 and 12, occ_wide at
    the k-mer build's full chunk on random positions and in the build's
    sorted order) against their plain versions on synthetic wide rows:
@@ -79,16 +82,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    reads drawn from record interiors plus a 512-read batch (random reads,
    reads of both repeats, reads right after a leading N run, drawn reads),
    served through count_locate_stream with the counts set to 0 just
-   before.  Every locate walks the marked LF walk in one marked_walk
-   launch; the path launches no backstep.
+   before.  The verify walk is one marked_walk launch per batch, the
+   re-dispatched lanes' classic walk one marked_walk_ranges launch (both
+   required); the path launches no backstep.
 11. GRCh38 correctness, per record: every hit spells its query in its
    record, every drawn read (and every planted copy of a repeat read) is
    found at its own (record, local), 64 counts equal a naive scan, and the
    12x repeat reads report 12 hits (or more, confirmed by naive scan); the
    host oracle of phase 5 on the scanned reads.
 12. GRCh38 report: as phase 6, with the walks' marked_walk times, each
-   beside its bound from the sectors its rows' walks touch, and backstep
-   timed as one visit over each walk's rows.
+   beside its bound from the sectors its rows' walks touch, the same
+   sectors summed over every visit (what the walks ask of L2) and the rate
+   they imply, and the chain floor (the longest walk at the per-step time
+   of a one-row walk); backstep timed as one visit over each walk's rows.
 13. Index files at chr20 scale: phase 7's host index (kept) saved as the
    .npz artifact (uncompressed) and loaded back, one 524,288-read batch
    served from it with phase 7's answers; then saved as .awry and loaded on
@@ -122,8 +128,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    engine lives): phase 10's host index shipped in the 64-bit layout
    (FmQueryEngine(wide=True): the classic path, occ_pair_wide rank steps,
    the k-mer seed as window_read k = 4 over the int64 table's words,
-   marked_walk_wide) serving phase 10's batches with the counts set to 0
-   just before: phase 10's answers exactly.  Its report: queries/s, the
+   marked_walk_ranges_wide over the capped ranges, required, and
+   marked_walk_wide for the over-cap rows) serving phase 10's batches with
+   the counts set to 0 just before: phase 10's answers exactly.  Its report: queries/s, the
    time split, every recorded call against its plain version, and each
    wide kernel's full-batch calls timed beside their bound, their plain
    version and their narrow twin on phase 10's engine (same requests, same
@@ -151,8 +158,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    its own position exactly once, 64 counts equal a naive scan, and
    count_batch of 4096 reads equals count_locate_arrays' counts.  Its
    report: queries/s, and each partition's marked_walk call of the first
-   batch (mark 32) against its plain version, timed beside its bound, with
-   its walk lengths (p50, p99, max).
+   batch (mark 32) against its plain version, timed beside its bound, its
+   summed sectors and their rate, its chain floor and its walk lengths
+   (p50, p99, max).
 20. Multi-device serving (run right after phase 6, on phase 4's host index
    and batches; 250 Mbp, k = 13, mark 1, SA ratio 8): Mode A,
    FmQueryEngine(index, mesh=make_mesh(devices=[cuda:0] * 2)), one shipped
@@ -323,16 +331,23 @@ REPLACES = {
     "occ_pair_shard": "awry_tpu/ops/sweep.py:1062",
     "sampled_walk_shard": "awry_tpu/parallel/sharding.py:132",
 }
+# The range-fed marked walks: each counted under its kernel (marked_walk,
+# marked_walk_wide) and under a count of its own, which the paths whose
+# classic marked walk runs through it require.
+MARKED_RANGES = ("marked_walk_ranges", "marked_walk_ranges_wide")
 # The wrappers whose calls a path's first batch records: every kernel's, and
-# sampled_walk_ranges (the range-fed entry of sampled_walk, counted under it).
-RECORDED = (*ALL_KERNELS, "sampled_walk_ranges", "sampled_walk_ranges_wide")
+# the range-fed entries (sampled_walk_ranges counted under sampled_walk).
+RECORDED = (*ALL_KERNELS, "sampled_walk_ranges", "sampled_walk_ranges_wide", *MARKED_RANGES)
 # Arguments of each wrapper that carry per-request data (recorded as copies).
 REQUEST_ARGS = {"window_read": (1,), "occ_pair": (1, 2, 3), "backstep": (1,), "occ": (1, 2), "marked_walk": (1,),
                 "sampled_walk": (1,), "sampled_walk_ranges": (1, 2), "occ_pair_wide": (2, 3, 4),
                 "backstep_wide": (2,), "marked_walk_wide": (2,), "sampled_walk_wide": (2,),
                 "sampled_walk_ranges_wide": (2, 3), "occ_wide": (2, 3), "occ_pair_shard": (3, 4, 5, 9, 10),
-                "sampled_walk_shard": (3, 4)}
-WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for marked_walk
+                "sampled_walk_shard": (3, 4), "marked_walk_ranges": (1, 2), "marked_walk_ranges_wide": (2, 3)}
+WALK_MARKS = (2, 4, 32)  # phase 3's mark ratios for the marked walks
+# Phase 3's cap per mark ratio for the range-fed marked walks (GRCh38's, the
+# pan-genome's).
+WALK_CAPS = {2: 8, 4: 8, 32: 2}
 
 # Phase 15: an E. coli-sized text (bench.py ecoli_4.6Mbp_dna) in two records,
 # built by the command line; reads checked through the facade and the CLI.
@@ -368,11 +383,11 @@ def clocks() -> dict:
 
 
 def launch_counts() -> dict:
-    return {name: getattr(kernels, name).launches for name in ALL_KERNELS}
+    return {name: getattr(kernels, name).launches for name in ALL_KERNELS + MARKED_RANGES}
 
 
 def reset_launch_counts() -> None:
-    for name in ALL_KERNELS:
+    for name in ALL_KERNELS + MARKED_RANGES:
         getattr(kernels, name).launches = 0
 
 
@@ -512,7 +527,10 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         out[f"backstep:{alphabet.name.lower()}"] = {"requests": reqs, "rows": nb, "row_words": rw, "max_abs_err": err}
 
         # marked_walk on the same rows: random mark bits stop half the lanes
-        # at each visit; random prefix sums step rows past either end.
+        # at each visit; random prefix sums step rows past either end.  Its
+        # range-fed entry on BATCH ranges starting at the first rows, counts
+        # 0 to 11 (cap 8 at marks 2 and 4, 2 at mark 32).
+        counts = torch.randint(0, 12, (BATCH,), device=device, generator=gen)
         for mark in WALK_MARKS:
             sa = random_words((-(-(symbols + 1) // mark),), device, gen)
             walk = (*args, mark, sa, symbols + 1)
@@ -523,8 +541,17 @@ def kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
             out[f"marked_walk:{alphabet.name.lower()}:mark{mark}"] = {
                 "requests": reqs, "rows": nb, "row_words": rw, "sa_words": sa.shape[0], "max_abs_err": err,
             }
+            cap = WALK_CAPS[mark]
+            ranges = (blocks, rows[:BATCH], counts, cap, *args[2:], mark, sa, symbols + 1)
+            err = max_abs_err(kernels.marked_walk_ranges(*ranges), kernels.marked_walk_ranges_plain(*ranges))
+            if err != 0:
+                raise AssertionError(f"marked_walk_ranges ({alphabet.name}, mark {mark}) disagrees with its plain "
+                                     f"version (max abs err {err})")
+            out[f"marked_walk:{alphabet.name.lower()}:ranges:mark{mark}"] = {
+                "requests": BATCH, "cap": cap, "rows": nb, "sa_words": sa.shape[0], "max_abs_err": err,
+            }
             del sa
-        del blocks, pos_a, pos_b, serving_b, serving, sym, pos, osym, runs, sorted_pos, rows, got, want
+        del blocks, pos_a, pos_b, serving_b, serving, sym, pos, osym, runs, sorted_pos, rows, got, want, counts
     return out
 
 
@@ -606,15 +633,18 @@ def wide_kernels_vs_plain(device: torch.device, gen: torch.Generator) -> dict:
         args = (prefix, codes, c2i, v, v * 8 + c, alphabet.ambiguity_idx)
         check(f"backstep_wide:{name}", kernels.backstep_wide(blocks, bases, pos, *args),
               kernels.backstep_wide_plain(blocks, bases, pos, *args))
-        for mark in (4, 32):
+        counts = torch.randint(0, 12, pos.shape, device=device, generator=gen)
+        for mark in WALK_MARKS:
             sa = torch.randint(0, bwt_len, (-(-bwt_len // mark),), device=device, generator=gen)
             walk = (blocks, bases, pos, *args, mark, sa, bwt_len)
             check(f"marked_walk_wide:{name}:mark{mark}", kernels.marked_walk_wide(*walk),
                   kernels.marked_walk_wide_plain(*walk), sa_values=sa.shape[0])
-            del sa, walk
+            ranges = (blocks, bases, pos, counts, WALK_CAPS[mark], *args, mark, sa, bwt_len)
+            check(f"marked_walk_wide:{name}:ranges:mark{mark}", kernels.marked_walk_ranges_wide(*ranges),
+                  kernels.marked_walk_ranges_wide_plain(*ranges), sa_values=sa.shape[0], cap=WALK_CAPS[mark])
+            del sa, walk, ranges
         del blocks, bases
         blocks, bases, prefix, codes, c2i = wide_tables(device, gen, alphabet, nb, shift, walkable=True)
-        counts = torch.randint(0, 12, pos.shape, device=device, generator=gen)
         for sa_ratio in (8, 12):
             sa = torch.randint(0, bwt_len, (-(-bwt_len // sa_ratio),), device=device, generator=gen)
             tail = (prefix, codes, c2i, v, alphabet.ambiguity_idx, sa_ratio, sa, bwt_len)
@@ -1167,19 +1197,32 @@ def backstep_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, 
     return float(sectors * 32 + n * 20), float(ops)
 
 
-def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
-                      sampled_sa, bwt_len, sa_word_bytes: int = 4) -> tuple[float, float]:
-    """(bytes, ops) of the walks these rows take: each distinct 32 B sector
-    the visits touch (a stepping visit: the sector of the row's mark word,
-    the V plane sectors and the stepped symbol's milestone sector; a final
-    visit: the sectors of the mark words up to the row's word and of the
-    mark milestone), each distinct sector of the marked SA read, and 16 B
-    per lane (the row in, the text position out); ops: backstep's per
-    stepping visit, the mark rank and 4 more per lane.  ``sa_word_bytes``: 8
-    for a wide index's int64 SA values."""
+def marked_walk_bound(*call, sa_word_bytes: int = 4) -> tuple[float, float, dict]:
+    """marked_walk_trace without the steps of each row."""
+    return marked_walk_trace(*call, sa_word_bytes=sa_word_bytes)[:3]
+
+
+def marked_walk_trace(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
+                      sampled_sa, bwt_len, sa_word_bytes: int = 4) -> tuple[float, float, dict, torch.Tensor]:
+    """(bytes, ops, walk, steps) of the walks these rows take: each distinct 32 B
+    sector the visits touch (a stepping visit: the sector of the row's mark
+    word, the V plane sectors and the stepped symbol's milestone sector; a
+    final visit: the sectors of the mark words up to the row's word and of the
+    mark milestone), each distinct sector of the marked SA read, and 16 B per
+    lane (the row in, the text position out); ops: backstep's per stepping
+    visit, the mark rank and 4 more per lane.  ``walk``: the same sectors
+    summed over every visit (each visit's distinct ones, and the SA word's
+    per lane: what the walks ask of L2, however often a row recurs) and the
+    bytes they make with the lanes' I/O, the walk lengths (steps p50, p99,
+    max, mean), the first row whose walk is the longest and a row whose walk
+    takes no step (None if every row steps).  ``steps``: each row's LF
+    steps.  ``sa_word_bytes``: 8 for a wide index's int64 SA values."""
     spr = blocks.shape[1] // 8
     visit_args = (prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx)
-    sectors, sa_sectors, stepping_visits = [], [], 0
+    sectors, sa_sectors, stepping_visits, summed = [], [], 0, 0
+    n = rows.shape[0]
+    steps = torch.zeros_like(rows)
+    live = torch.arange(n, device=rows.device)
     pos = rows
     for visit in range(1, mark_ratio + 1):
         p, r = kernels._fetch_rows(blocks, pos)
@@ -1190,24 +1233,78 @@ def marked_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offse
         del r
         safe = torch.where(sym == 0, ambiguity_idx, sym)
         step = ~final
+        mark_sector = (mark_offset + word) >> 3
+        mile_sector = (nplanes * 8 + safe) >> 3
+        last = mark_sector[final]
+        summed += int((nplanes + 1 + (mark_sector[step] != mile_sector[step]).to(torch.int64)).sum())
+        summed += int((last - (mark_offset >> 3) + 1 + (((mark_offset + 8) >> 3) > last).to(torch.int64)).sum())
         sectors += [
-            base + ((mark_offset + word) >> 3),
+            base + mark_sector,
             base[final] + (mark_offset >> 3),
             base[final] + ((mark_offset + 8) >> 3),
             (base[step][:, None] + torch.arange(nplanes, device=p.device)).reshape(-1),
-            base[step] + ((nplanes * 8 + safe[step]) >> 3),
+            base[step] + mile_sector[step],
         ]
         _, packed = kernels.backstep_plain(blocks, pos[final], *visit_args)
         rank = ((packed.to(torch.int64) & 0xFFFFFFFF) >> 1).clamp_max(sampled_sa.shape[0] - 1)
         sa_sectors.append((rank * sa_word_bytes) >> 5)
         stepping_visits += int(step.sum())
+        live = live[step]
+        steps[live] += 1
         pos = kernels.backstep_plain(blocks, pos[step], *visit_args)[0]
         if not pos.numel():
             break
     distinct = torch.unique(torch.cat(sectors)).numel() + torch.unique(torch.cat(sa_sectors)).numel()
-    n = rows.shape[0]
     ops = stepping_visits * (nplanes * 3 + nplanes * 16 + 8 * 3 + 2 + 3) + n * (8 * 3 + 4 + 4)
-    return float(distinct * 32 + n * 16), float(ops)
+    summed += n  # the SA word's sector, one per lane
+    st = steps.double()
+    lengths = {"rows": n, "mean": float(st.mean()) if n else 0.0}
+    for q in (0.5, 0.99):
+        lengths[f"p{q * 100:g}"] = float(torch.quantile(st[: 1 << 24], q)) if n else 0.0
+    lengths["max"] = int(steps.max()) if n else 0
+    zero = torch.nonzero(steps == 0)[:, 0]
+    walk = {"summed_sectors": summed, "summed_bytes": float(summed * 32 + n * 16), "walk_steps": lengths,
+            "longest_row": int(rows[int(steps.argmax())]) if n else 0,
+            "zero_step_row": int(rows[int(zero[0])]) if zero.numel() else None}
+    return float(distinct * 32 + n * 16), float(ops), walk, steps
+
+
+def marked_walk_ranges_bound(blocks, starts, counts, cap, *walk, sa_word_bytes: int = 4) -> tuple[float, float, dict]:
+    """marked_walk_bound of what the range-fed entry walks (each range's live
+    slots, then row 0 once for the idle slots), its I/O counted as the entry
+    moves it: starts and counts in (16 B per query), the int64[B, cap]
+    positions out."""
+    rows = kernels.slot_rows(starts, counts, cap).reshape(-1)
+    live = torch.arange(cap, device=starts.device)[None, :] < counts.clamp(0, cap)[:, None]
+    walked = torch.cat([rows[live.reshape(-1)], rows.new_zeros(1)])
+    nbytes, ops, info = marked_walk_bound(blocks, walked, *walk, sa_word_bytes=sa_word_bytes)
+    io = starts.shape[0] * 16 + rows.shape[0] * 8 - walked.shape[0] * 16
+    info["summed_bytes"] += io
+    return nbytes + io, ops, info
+
+
+def chain_floor(walk_one, walk: dict, device: torch.device, flush) -> dict:
+    """The chain floor of a batch of marked walks: its longest walk at the
+    per-step time of a one-row walk (``walk_one(rows)``, one launch), the
+    longest row's one-row walk less a zero-step row's (or less nothing when
+    every row steps)."""
+    rows = [None if r is None else torch.tensor([r], device=device) for r in (walk["longest_row"],
+                                                                             walk["zero_step_row"])]
+    longest_ms, zero_ms = (time_ms(lambda r=r: walk_one(r), device, 20, flush) if r is not None else 0.0
+                           for r in rows)
+    top = walk["walk_steps"]["max"]
+    return {"longest_walk_ms": longest_ms, "zero_step_walk_ms": zero_ms,
+            "chain_floor_ms": max(longest_ms - zero_ms, 0.0),
+            "per_step_ms": max(longest_ms - zero_ms, 0.0) / top if top else None}
+
+
+def walk_figures(ms: float, walk: dict, chain: dict) -> dict:
+    """A marked walk's row figures beside its bound: the summed sectors, the
+    L2 traffic rate they imply at ``ms`` (TB/s), the walk lengths and the
+    chain floor."""
+    return {"summed_sectors": walk["summed_sectors"], "summed_bytes": walk["summed_bytes"],
+            "summed_rate_tb_s": walk["summed_bytes"] / (ms * 1e-3) / 1e12 if ms else None,
+            "walk_steps": walk["walk_steps"]} | chain
 
 
 def sampled_walk_bound(blocks, rows, prefix_sums, codes, c2i, nplanes, ambiguity_idx, sa_ratio, sampled_sa,
@@ -1335,7 +1432,7 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
         if err != 0:
             raise AssertionError(f"{kind} disagrees with its plain version on a main-path call "
                                  f"({args[1].shape[0]} requests): max abs err {err}")
-        name = kind.removesuffix("_ranges")  # the range-fed entry counts under sampled_walk
+        name = kind.removesuffix("_ranges")  # a range-fed entry counts under its kernel
         c = checked.setdefault(name, {"calls": 0, "max_abs_err": 0})
         c["calls"] += 1
         c["max_abs_err"] = max(c["max_abs_err"], err)
@@ -1365,7 +1462,15 @@ def kernel_report(run: dict, device: torch.device) -> tuple[list[dict], dict, di
         elif kind == "marked_walk":
             walks += 1
             site = f"walk {walks} (mark {args[8]})"
-            nbytes, ops = marked_walk_bound(*args)
+            nbytes, ops, walk = marked_walk_bound(*args)
+            chain = chain_floor(lambda r: kernels.marked_walk(args[0], r, *args[2:]), walk, device, flush)
+            extra = walk_figures(ms, walk, chain)
+        elif kind == "marked_walk_ranges":
+            walks += 1
+            site = f"walk {walks} (ranges, mark {args[10]}, cap {args[3]})"
+            nbytes, ops, walk = marked_walk_ranges_bound(*args)
+            chain = chain_floor(lambda r: kernels.marked_walk(args[0], r, *args[4:]), walk, device, flush)
+            extra = walk_figures(ms, walk, chain)
         elif kind == "sampled_walk_ranges":
             # The new launch, beside the composition it replaced: the padded
             # rows (slot_rows) walked by the flat entry, as one function to
@@ -1432,7 +1537,7 @@ def report(name: str, run: dict, device: torch.device) -> dict:
     for row in rows:
         log("  " + json.dumps(row))
     build_launches = run.get("build_launches", dict.fromkeys(ALL_KERNELS, 0))
-    launches = {kind: run["launches"][kind] + build_launches[kind] for kind in ALL_KERNELS}
+    launches = {kind: run["launches"][kind] + build_launches.get(kind, 0) for kind in ALL_KERNELS + MARKED_RANGES}
     for kind, agg in per_kernel.items():
         n = run["launches"][kind]
         batches = len(run["batches"])
@@ -1804,9 +1909,11 @@ def narrow_twin(kind: str, args: tuple, narrow) -> tuple[str, tuple]:
         return "occ_pair", (narrow.blocks, *args[2:5], narrow.codes, narrow.num_planes)
     if kind == "backstep_wide":
         return "backstep", (narrow.blocks, args[2], *lf, narrow.mark_offset, amb)
+    marked = (narrow.mark_offset, amb, narrow.mark_ratio, narrow.text_sampled_sa, narrow.bwt_len)
     if kind == "marked_walk_wide":
-        return "marked_walk", (narrow.blocks, args[2], *lf, narrow.mark_offset, amb, narrow.mark_ratio,
-                               narrow.text_sampled_sa, narrow.bwt_len)
+        return "marked_walk", (narrow.blocks, args[2], *lf, *marked)
+    if kind == "marked_walk_ranges_wide":
+        return "marked_walk_ranges", (narrow.blocks, *args[2:5], *lf, *marked)
     return "sampled_walk_ranges", (narrow.blocks, *args[2:5], *lf, amb, narrow.sa_ratio, narrow.sampled_sa,
                                    narrow.bwt_len)
 
@@ -1823,9 +1930,10 @@ def same_values(wide_out, narrow_out) -> bool:
 
 
 def wide_bound(kind: str, twin_args: tuple) -> tuple[float, float, dict]:
-    """(bytes, ops, walk lengths) of a wide call from its narrow twin's
-    inputs: the twin's bound, with 8-byte SA values and the wider outputs
-    (occ_pair: 8 B more per request, backstep: 4 B)."""
+    """(bytes, ops, walk) of a wide call from its narrow twin's inputs: the
+    twin's bound, with 8-byte SA values and the wider outputs (occ_pair: 8 B
+    more per request, backstep: 4 B); walk: a walk's lengths (and a marked
+    walk's summed sectors and rows for its chain floor)."""
     if kind == "occ_pair_wide":
         nbytes, ops = occ_pair_bound(*twin_args)
         return nbytes + twin_args[1].shape[0] * 8, ops, {}
@@ -1833,34 +1941,18 @@ def wide_bound(kind: str, twin_args: tuple) -> tuple[float, float, dict]:
         nbytes, ops = backstep_bound(*twin_args)
         return nbytes + twin_args[1].shape[0] * 4, ops, {}
     if kind == "marked_walk_wide":
-        nbytes, ops = marked_walk_bound(*twin_args, sa_word_bytes=8)
-        return nbytes, ops, marked_walk_lengths(*twin_args)
-    nbytes, ops, lengths = sampled_walk_ranges_bound(*twin_args, sa_word_bytes=8)
-    return nbytes, ops, lengths
+        return marked_walk_bound(*twin_args, sa_word_bytes=8)
+    if kind == "marked_walk_ranges_wide":
+        return marked_walk_ranges_bound(*twin_args, sa_word_bytes=8)
+    return sampled_walk_ranges_bound(*twin_args, sa_word_bytes=8)
 
 
-def marked_walk_lengths(blocks, rows, prefix_sums, codes, c2i, nplanes, mark_offset, ambiguity_idx, mark_ratio,
-                        sampled_sa, bwt_len) -> dict:
-    """Steps of each row's marked walk (at most mark_ratio - 1), by visits
-    of backstep_plain: p50, p99, max and the mean."""
-    pos = rows.clone()
-    steps = torch.zeros_like(rows)
-    live = torch.arange(rows.shape[0], device=rows.device)
-    for _ in range(mark_ratio - 1):
-        stepped, packed = kernels.backstep_plain(blocks, pos[live], prefix_sums, codes, c2i, nplanes, mark_offset,
-                                                 ambiguity_idx)
-        going = (packed & 1) == 0
-        live = live[going]
-        pos[live] = stepped[going]
-        steps[live] += 1
-        if not live.numel():
-            break
-    st = steps.double()
-    out = {"rows": int(rows.shape[0]), "mean": float(st.mean())}
-    for q in (0.5, 0.99):
-        out[f"p{q * 100:g}"] = float(torch.quantile(st[: 1 << 24], q))
-    out["max"] = int(steps.max())
-    return out
+def walk_rows_wide(ranges: tuple) -> tuple:
+    """backstep_wide's arguments over the live slots' rows of a
+    marked_walk_ranges_wide call."""
+    blocks, bases, starts, counts, cap, *rest = ranges
+    live = torch.arange(cap, device=starts.device)[None, :] < counts.clamp(0, cap)[:, None]
+    return (blocks, bases, kernels.slot_rows(starts, counts, cap)[live], *rest[:6])
 
 
 def wide_report(name: str, run: dict, narrow, device: torch.device) -> dict:
@@ -1877,10 +1969,11 @@ def wide_report(name: str, run: dict, narrow, device: torch.device) -> dict:
     log(f"  {name} time split: {json.dumps(split)}")
     flush = make_flush(device)
     engine.warmup(batch_sizes=(batch,), query_lens=(run.get("qlen", QLEN),))
-    # backstep_wide as one visit over each full walk's rows (the facade's
-    # call on a wide index), as the narrow report times backstep.
-    calls = run["calls"] + [("backstep_wide", a[:9]) for kind, a in run["calls"]
-                            if kind == "marked_walk_wide" and a[2].shape[0] >= batch]
+    # backstep_wide as one visit over each full batch's walk rows (the
+    # facade's call on a wide index), as the narrow report times backstep:
+    # the range-fed walk's live slots.
+    calls = run["calls"] + [("backstep_wide", walk_rows_wide(a)) for kind, a in run["calls"]
+                            if kind == "marked_walk_ranges_wide" and a[2].shape[0] >= batch]
     checked: dict = {}
     per_kernel: dict = {}
     rows = []
@@ -1893,7 +1986,8 @@ def wide_report(name: str, run: dict, narrow, device: torch.device) -> dict:
         key = kind.replace("_ranges", "")  # the range-fed entry counts under sampled_walk_wide
         c = checked.setdefault(key, {"calls": 0, "max_abs_err": 0})
         c["calls"] += 1
-        if kind == "window_read" or kind == "sampled_walk_wide" or args[2].shape[0] < batch:
+        if kind == "window_read" or kind == "sampled_walk_wide" or (kind != "backstep_wide" and
+                                                                     args[2].shape[0] < batch):
             continue  # the seed read (narrow), an over-cap expansion or a re-dispatch: checked, not timed
         twin_kind, twin_args = narrow_twin(kind, args, narrow)
         twin = getattr(kernels, twin_kind)
@@ -1913,7 +2007,13 @@ def wide_report(name: str, run: dict, narrow, device: torch.device) -> dict:
         row = {"kernel": key, "site": f"{kind} call {agg['calls_timed']}", "requests": int(args[2].shape[0]),
                "ms": ms, "narrow_twin_ms": twin_ms, "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
                "ops": ops, "max_abs_err": err}
-        if lengths:
+        if key == "marked_walk_wide":
+            # The chain floor from one-row walks of the wide flat entry.
+            tail = args[5:] if kind == "marked_walk_ranges_wide" else args[3:]
+            chain = chain_floor(lambda r: kernels.marked_walk_wide(args[0], args[1], r, *tail), lengths, device,
+                                flush)
+            row.update(walk_figures(ms, lengths, chain))
+        elif lengths:
             row["walk_steps"] = lengths
         rows.append(row)
     for row in rows:
@@ -2061,14 +2161,16 @@ def federation_report(run: dict, device: torch.device) -> dict:
         c["calls"] += 1
         if kind != "marked_walk" or args[1].shape[0] < BATCH:
             continue
-        nbytes, ops = marked_walk_bound(*args)
+        nbytes, ops, walk = marked_walk_bound(*args)
+        ms = time_ms(lambda: kernels.marked_walk(*args), device, 20, flush)
+        chain = chain_floor(lambda r: kernels.marked_walk(args[0], r, *args[2:]), walk, device, flush)
         rows.append({
             "kernel": "marked_walk", "site": f"walk {len(rows) + 1} (mark {args[8]}, partition {len(rows)})",
-            "requests": int(args[1].shape[0]), "ms": time_ms(lambda: kernels.marked_walk(*args), device, 20, flush),
+            "requests": int(args[1].shape[0]), "ms": ms,
             "plain_ms": time_ms(lambda: kernels.marked_walk_plain(*args), device, 3, flush),
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, "bytes": nbytes, "ops": ops,
-            "max_abs_err": err, "walk_steps": marked_walk_lengths(*args),
-        })
+            "max_abs_err": err,
+        } | walk_figures(ms, walk, chain))
     for row in rows:
         log("  " + json.dumps(row))
     agg = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
@@ -2667,7 +2769,8 @@ def main() -> int:
     log(f"phase 10 GRCh38-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; launches "
         f"{run['launches']}; peak device memory {torch.cuda.max_memory_allocated(device)} B "
         f"({time.perf_counter() - t0:.3f} s with text and build)")
-    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "marked_walk"))
+    # The re-dispatched lanes' classic walk runs the range-fed entry.
+    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "marked_walk", "marked_walk_ranges"))
     if run["launches"]["backstep"]:
         raise AssertionError("the GRCh38-shaped path launched backstep: its walk must be one marked_walk launch")
     stats = run["engine"].stats
@@ -2688,7 +2791,8 @@ def main() -> int:
     wrun = wide_serve("GRCh38-shaped", fm.engine, time.perf_counter() - t0, run["batches"], run["results"], device)
     log(f"phase 17 wide GRCh38-shaped path: {wrun['queries']} queries in {wrun['serve_s']:.3f} s; launches "
         f"{wrun['launches']}; phase 10's answers ({time.perf_counter() - t0:.3f} s with the ship)")
-    require_launches("wide GRCh38-shaped", wrun["launches"], ("window_read", "occ_pair_wide", "marked_walk_wide"))
+    require_launches("wide GRCh38-shaped", wrun["launches"],
+                     ("window_read", "occ_pair_wide", "marked_walk_wide", "marked_walk_ranges_wide"))
     if wrun["launches"]["occ_pair"] or wrun["launches"]["marked_walk"]:
         raise AssertionError("the wide GRCh38-shaped path launched a narrow rank or walk kernel")
     paths["grch38_wide"] = wide_report("grch38_wide", wrun, run["engine"].device_index, device)

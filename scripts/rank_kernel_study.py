@@ -101,6 +101,7 @@ P = ctypes.c_void_p
 I64 = ctypes.c_int64
 I32 = ctypes.c_int
 WALK = [I32, P, I64, I32, I32, P, P, P, I32, ctypes.c_uint32, P, I64, I64]  # the sampled walks' shared head
+MARKED = [I32, P, I64, I32, I32, P, P, P, I32, I32, I32]  # the marked walks' shared head
 # Each source's entry points and their argument types.
 ENTRIES = {
     "occ_pair.cu": {
@@ -111,7 +112,8 @@ ENTRIES = {
     "window_read.cu": {"window_read": [I32, P, I64, P, I64, I32, P, P]},
     "backstep.cu": {
         "backstep": [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, P, P, P],
-        "marked_walk": [I32, P, I64, I32, I32, P, P, P, I32, I32, I32, P, I64, I64, P, I64, P, P],
+        "marked_walk": [*MARKED, P, I64, I64, P, I64, P, P],
+        "marked_walk_ranges": [*MARKED, I32, P, I64, I64, P, P, I64, I32, P, P, P],
         "sampled_walk": [*WALK, P, I64, P, P, P],
         "sampled_walk_ranges": [*WALK, P, P, I64, I32, P, P, P],
         "sampled_walk_compact": [*WALK, P, P, P, I64, I32, P, P, P, P],
@@ -251,6 +253,7 @@ class _Build:
         self.walks_fused = "backstep.cu" not in present or hasattr(self._lib, f"{name}_marked_walk")
         self.walks_ranges = "backstep.cu" not in present or hasattr(self._lib, f"{name}_sampled_walk_ranges")
         self.walks_compact = hasattr(self._lib, f"{name}_sampled_walk_compact")
+        self.walks_marked_ranges = "backstep.cu" not in present or hasattr(self._lib, f"{name}_marked_walk_ranges")
         if not self.walks_ranges and hasattr(self._lib, f"{name}_sampled_walk"):
             self.awry_sampled_walk.argtypes = PARENT_SAMPLED_WALK
         self._fallback = fallback
@@ -323,6 +326,8 @@ def _serving_sites(run: dict, kinds, batch: int = cs.BATCH) -> list:
             sites.append((kind, f"{names.get(id(a[0]), 'table')} k={a[2]}", a))
         elif kind == "marked_walk":
             sites.append((kind, f"walk rows (mark {a[8]})", a))
+        elif kind == "marked_walk_ranges":
+            sites.append((kind, f"ranges (mark {a[10]}, cap {a[3]})", a))
         elif kind == "sampled_walk_ranges":
             sites.append(("sampled_walk", f"ranges (SA ratio {a[9]}, cap {a[3]})", a))
     run["engine"].release()
@@ -372,7 +377,53 @@ def record_chr20(device, rng, kinds) -> list:
 
 
 def record_grch38(device, rng, kinds) -> list:
-    return _serving_sites(cs.grch38_path(device, rng), kinds)
+    """The GRCh38-shaped path's sites, and with the marked walk among the
+    kernels the classic path's ranges of its first batch at cap 8 (the
+    wide engine's walk, phase 17)."""
+    run = cs.grch38_path(device, rng)
+    if "marked_walk" in kinds:
+        run["calls"].append(("marked_walk_ranges", classic_ranges(run["engine"], run["batches"][0], 8)))
+    return _serving_sites(run, kinds)
+
+
+def record_pangenome(device, rng, kinds) -> list:
+    """One partition of chip_smoke's federation (phase 19: the pan-genome
+    widths, k = 11, mark 32, SA ratio 8, 30 bp reads, cap 2): 10 records of
+    6.4 Mbp of seeded random ACGT joined by the N delimiter (64 Mbp), and a
+    batch of 524,288 reads drawn from record interiors.  Sites: the verify
+    path's walk of the batch (its B + 4 G rows, marked_walk), and the
+    classic path's walk of the batch's ranges at cap 2 (count_locate_capped_t,
+    marked_walk_ranges)."""
+    n_rec, ln = cs.PAN_PER_PARTITION, cs.PAN_RECORD_SYMBOLS
+    text_np = cs.LETTERS[rng.integers(0, 4, size=n_rec * (ln + 1) - 1, dtype=np.uint8)]
+    rec_starts = np.arange(n_rec, dtype=np.int64) * (ln + 1)
+    text_np[rec_starts[1:] - 1] = ord("N")
+    text = text_np.tobytes()
+    index = build_from_records(
+        [(f"genome_{i}", text[s : s + ln]) for i, s in enumerate(rec_starts.tolist())],
+        FmBuildArgs(lookup_table_kmer_len=cs.PAN_KMER_LEN, locate_mark_ratio=cs.PAN_MARK,
+                    suffix_array_compression_ratio=8),
+    )
+    engine = FmQueryEngine(index, device=device)
+    starts = rec_starts[rng.integers(0, n_rec, size=cs.BATCH)] + rng.integers(0, ln - cs.QLEN + 1, size=cs.BATCH)
+    batch = [text[s : s + cs.QLEN] for s in starts.tolist()]
+    calls: list = []
+    with cs.recording_kernel_inputs(calls, lambda name, a: name == "marked_walk"):
+        next(engine.count_locate_stream([batch], cap=cs.PAN_CAP))
+    calls.append(("marked_walk_ranges", classic_ranges(engine, batch, cs.PAN_CAP)))
+    return _serving_sites({"engine": engine, "calls": calls}, kinds, len(batch))
+
+
+def classic_ranges(engine, batch, cap: int) -> tuple:
+    """The marked_walk_ranges call the classic path makes for ``batch``: the
+    ranges of its full search, at ``cap``."""
+    from awry_tpu_torch.ops import counts_from_ranges, search_ranges_t
+
+    dev = engine.device_index
+    qt, ql, flags = engine._upload(*engine.encode_queries(batch))
+    lo, hi = search_ranges_t(dev, qt, ql, **flags)
+    return (dev.blocks, lo, counts_from_ranges(lo, hi), cap, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes,
+            dev.mark_offset, dev.alphabet.ambiguity_idx, dev.mark_ratio, dev.text_sampled_sa, dev.bwt_len)
 
 
 def record_markless(device, rng, kinds) -> list:
@@ -399,12 +450,64 @@ def record_amino(device, rng, kinds) -> list:
 
 
 def _walk(lib, args):
-    """The whole walk on ``lib``: one marked_walk launch if it has one, else
-    by visits of its backstep and window_read."""
+    """The whole flat walk on ``lib``: one marked_walk launch if it has one,
+    else by visits of its backstep and window_read."""
     with using(lib):
         if getattr(lib, "walks_fused", True):
             return kernels.marked_walk(*args)
         return kernels.walk_by_visits(kernels.backstep, kernels.window_read, *args)
+
+
+@contextlib.contextmanager
+def visit_mode(eager_from: int | None):
+    """The package's range-fed marked walks with kernels.MARKED_EAGER_FROM
+    patched (1: every visit reads the planes with the mark word; a mark
+    ratio past any: after it), or as they are (None)."""
+    saved = kernels.MARKED_EAGER_FROM
+    if eager_from is not None:
+        kernels.MARKED_EAGER_FROM = eager_from
+    try:
+        yield
+    finally:
+        kernels.MARKED_EAGER_FROM = saved
+
+
+# The package build's range-fed marked walk in each visit mode, beside its
+# own rule.
+MODES = {"eager": 1, "lazy": 1 << 30}
+
+
+def _padded_walk(lib, args):
+    """A range call's padded rows (kernels.slot_rows) walked by ``lib``'s
+    flat walk, as int64[B, cap]."""
+    blocks, starts, counts, cap, *walk = args
+    return _walk(lib, (blocks, kernels.slot_rows(starts, counts, cap).reshape(-1), *walk)).reshape(-1, cap)
+
+
+def _marked_ranges_contenders(libs: dict, args) -> dict:
+    """The range-fed marked walk on every build with the entry, and as
+    ``NAME, glue + flat`` (the padded rows walked by its flat entry); a build
+    without it (the parent's) walks the padded rows."""
+    out = {}
+    for name, lib in libs.items():
+        if not getattr(lib, "walks_marked_ranges", hasattr(kernels, "marked_walk_ranges")):
+            out[name] = lambda lib=lib: _padded_walk(lib, args)
+            continue
+
+        def ranges(lib=lib):
+            with using(lib):
+                return kernels.marked_walk_ranges(*args)
+
+        out[name] = ranges
+        out[f"{name}, glue + flat"] = lambda lib=lib: _padded_walk(lib, args)
+    for mode, eager_from in MODES.items():
+        out[f"new, {mode}"] = lambda e=eager_from: _moded(e, out["new"])
+    return out
+
+
+def _moded(eager_from: int, fn):
+    with visit_mode(eager_from):
+        return fn()
 
 
 def _parent_sampled_walk(lib, args):
@@ -470,6 +573,8 @@ def contenders(libs: dict, kind: str, args) -> dict:
     if kind == "sampled_walk":
         return _sampled_contenders(libs, args)
     libs = {name: lib for name, lib in libs.items() if not getattr(lib, "walks_compact", False)}
+    if kind == "marked_walk_ranges":
+        return _marked_ranges_contenders(libs, args)
     if kind == "marked_walk":
         out = {name: (lambda lib=lib: _walk(lib, args)) for name, lib in libs.items()}
 
@@ -491,18 +596,80 @@ def contenders(libs: dict, kind: str, args) -> dict:
     return out
 
 
+def in_turns(fns: dict, device, flush) -> tuple[dict, dict]:
+    """Each fn's median ms over turns (forward, then backward, TURN_PAIRS
+    times), and every turn."""
+    times = {name: [] for name in fns}
+    for name in (list(fns) + list(fns)[::-1]) * TURN_PAIRS:
+        times[name].append(cs.time_ms(fns[name], device, REPS, flush))
+    return {name: float(np.median(v)) for name, v in times.items()}, times
+
+
+def _plain(kind: str, args):
+    if kind == "sampled_walk":
+        return kernels.sampled_walk_ranges_plain(*args)
+    if kind == "marked_walk_ranges":
+        blocks, starts, counts, cap, *walk = args
+        return kernels.marked_walk_plain(blocks, kernels.slot_rows(starts, counts, cap).reshape(-1),
+                                         *walk).reshape(-1, cap)
+    return getattr(kernels, f"{kind}_plain")(*args)
+
+
 def time_site(libs: dict, kind: str, args, device, flush) -> dict:
     """Each contender's largest error against the plain version, and its
-    median ms over turns (forward, then backward, TURN_PAIRS times)."""
-    plain = (kernels.sampled_walk_ranges_plain if kind == "sampled_walk" else getattr(kernels, f"{kind}_plain"))(*args)
+    median ms over turns."""
+    plain = _plain(kind, args)
     fns = contenders(libs, kind, args)
     errs = {name: cs.result_err(fn(), plain) for name, fn in fns.items()}
     if errs["new"] != 0:
         raise AssertionError(f"{kind} disagrees with its plain version: max abs err {errs['new']}")
-    times = {name: [] for name in fns}
-    for name in (list(fns) + list(fns)[::-1]) * TURN_PAIRS:
-        times[name].append(cs.time_ms(fns[name], device, REPS, flush))
-    return {"max_abs_err": errs, "ms": {name: float(np.median(v)) for name, v in times.items()}, "turns_ms": times}
+    ms, times = in_turns(fns, device, flush)
+    return {"max_abs_err": errs, "ms": ms, "turns_ms": times}
+
+
+def marked_variants(libs: dict, kind: str, call, device, flush) -> dict:
+    """What the marked walk's time follows (step 0 of the walk's redesign):
+    every build's flat walk, in turns, over the flat call's rows, their
+    first half and the rows sorted by walk length; over a range call's
+    padded rows (kernels.slot_rows, as the parent's classic path walks
+    them) and its live slots only.  Each variant with its bound, its summed
+    sectors (chip_smoke.marked_walk_bound) and the rate they imply at each
+    build's ms; each build's chain floor over the first variant's rows (the
+    longest walk at the per-step time of its one-row walks)."""
+    if kind == "marked_walk":
+        blocks, rows, *walk = call
+        steps = cs.marked_walk_trace(*call)[3]
+        rows_of = {"every row": rows, "first half": rows[: rows.shape[0] // 2].clone(),
+                   "sorted by walk length": rows[torch.argsort(steps, stable=True)]}
+    else:
+        blocks, starts, counts, cap, *walk = call
+        padded = kernels.slot_rows(starts, counts, cap).reshape(-1)
+        live = torch.arange(cap, device=starts.device)[None, :] < counts.clamp(0, cap)[:, None]
+        rows_of = {"live slots only": padded[live.reshape(-1)], "padded rows": padded}
+    libs = {name: lib for name, lib in libs.items() if not getattr(lib, "walks_compact", False)}
+    walkers = {name: (lambda a, lib=lib: _walk(lib, a)) for name, lib in libs.items()}
+    out = {}
+    fns = {}
+    for label, rows in rows_of.items():
+        nbytes, ops, info = cs.marked_walk_bound(blocks, rows, *walk)
+        out[label] = {"rows": int(rows.shape[0]), "bytes": nbytes,
+                      "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.INT32_OPS_PER_S) * 1e3,
+                      "summed_bytes": info["summed_bytes"], "walk_steps": info["walk_steps"], "info": info}
+        for name, walker in walkers.items():
+            fns[(label, name)] = lambda walker=walker, rows=rows: walker((blocks, rows, *walk))
+    ms, times = in_turns(fns, device, flush)
+    first = next(iter(rows_of))
+    for (label, name), t in ms.items():
+        v = out[label]
+        v.setdefault("ms", {})[name] = t
+        v.setdefault("summed_rate_tb_s", {})[name] = v["summed_bytes"] / (t * 1e-3) / 1e12
+        v.setdefault("turns_ms", {})[name] = times[(label, name)]
+        if label == first:
+            v.setdefault("chain", {})[name] = cs.chain_floor(lambda r, w=walkers[name]: w((blocks, r, *walk)),
+                                                            v["info"], device, flush)
+    for v in out.values():
+        v.pop("info")
+    return out
 
 
 # Fixed passes over the shards per round of Mode B's walk (walk_rounds),
@@ -728,7 +895,8 @@ def two_blocks(args):
 
 
 BOUNDS = {"occ_pair": cs.occ_pair_bound, "occ": cs.occ_bound, "window_read": cs.window_read_bound,
-          "marked_walk": cs.marked_walk_bound, "sampled_walk": cs.sampled_walk_ranges_bound}
+          "marked_walk": cs.marked_walk_bound, "marked_walk_ranges": cs.marked_walk_ranges_bound,
+          "sampled_walk": cs.sampled_walk_ranges_bound}
 
 
 def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dict:
@@ -745,6 +913,12 @@ def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dic
     row.update(time_site(libs, kind, call, device, flush))
     if kind == "sampled_walk":
         row["tail"] = walk_tail(libs, call, device, flush)
+    if kind.startswith("marked_walk"):
+        info = walks[0]
+        row["walk_steps"] = info["walk_steps"]
+        row["summed_bytes"] = info["summed_bytes"]
+        row["summed_rate_tb_s"] = {name: info["summed_bytes"] / (t * 1e-3) / 1e12 for name, t in row["ms"].items()}
+        row["variants"] = marked_variants(libs, kind, call, device, flush)
     log(json.dumps(row))
     return row
 
@@ -754,7 +928,7 @@ def main() -> int:
     parser.add_argument("--baseline", action="append", default=[], help="directory holding other kernel sources")
     parser.add_argument("--kernels", default="occ_pair,occ", help=f"comma-separated, of {','.join(KINDS)}")
     parser.add_argument("--paths", default="chr1,chr20",
-                        help="comma-separated: chr1, chr20, grch38, markless, amino, modeb")
+                        help="comma-separated: chr1, chr20, grch38, pangenome, markless, amino, modeb")
     parser.add_argument("--pairs", action="store_true", help="occ_pair on chr1 pairs moved into one / two blocks")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="write the full record as JSON here")
@@ -784,8 +958,8 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             continue
-        sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38, "markless": record_markless,
-                 "amino": record_amino}[path](device, rng, kinds)
+        sites = {"chr1": record_chr1, "chr20": record_chr20, "grch38": record_grch38, "pangenome": record_pangenome,
+                 "markless": record_markless, "amino": record_amino}[path](device, rng, kinds)
         log(f"{path}: {len(sites)} sites recorded in {time.perf_counter() - t0:.1f} s")
         for kind, label, call in sites:
             rows.append(site_row(libs, path, kind, label, call, device, flush))

@@ -170,6 +170,147 @@ def test_marked_walk_matches_plain(card, alphabet, mark_ratio):
     assert torch.equal(got, kernels.marked_walk_plain(*args, *tail))
 
 
+def _marked_steps(tdev, rows, mark_ratio):
+    """LF steps of each row's marked walk (backstep_plain visits) and
+    whether each row is itself marked."""
+    lf = (tdev.prefix_sums, tdev.codes, tdev.c2i, tdev.num_planes, tdev.mark_offset, tdev.alphabet.ambiguity_idx)
+    pos, steps = rows.clone(), torch.zeros_like(rows)
+    live = torch.arange(rows.shape[0])
+    marked = None
+    for _ in range(mark_ratio - 1):
+        stepped, packed = kernels.backstep_plain(tdev.blocks, pos[live], *lf)
+        going = (packed & 1) == 0
+        if marked is None:
+            marked = ~going
+        live = live[going]
+        pos[live] = stepped[going]
+        steps[live] += 1
+    return steps, marked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+@pytest.mark.parametrize("mark_ratio", [2, 4, 32])
+def test_marked_walk_rows_match_plain(card, alphabet, mark_ratio):
+    """The flat marked walk equals its plain version on rows sorted by walk
+    length, rows that are all marked, rows past either end, and 1, 33 and
+    4099 rows; no row launches nothing; one launch per call."""
+    tdev, rng = _device_index(alphabet, 60_000, 40 + mark_ratio, mark_ratio=mark_ratio)
+    n, nbits = tdev.bwt_len, tdev.blocks.shape[0] * 256
+    rows = torch.from_numpy(np.concatenate([[0, n - 1, n, nbits - 1, nbits + 9, -4], rng.integers(0, n, size=4093)]))
+    steps, marked = _marked_steps(tdev, rows.clamp(0, nbits - 1), mark_ratio)
+    tables = [t.to(card) for t in (tdev.blocks, tdev.prefix_sums, tdev.codes, tdev.c2i)]
+    tail = (tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx, mark_ratio, tdev.text_sampled_sa.to(card), n)
+    batches = {
+        "sorted by walk length": rows[torch.argsort(steps, stable=True)],
+        "all marked": rows.clamp(0, nbits - 1)[marked],
+        "past either end": torch.tensor([-9, -1, n, n + 1, nbits - 1, nbits, nbits + 300]),
+        "one": rows[:1], "33": rows[:33], "4099": rows[:4099], "none": rows[:0],
+    }
+    assert batches["all marked"].numel() > 0
+    for name, batch in batches.items():
+        n0 = kernels.marked_walk.launches
+        got = kernels.marked_walk(tables[0], batch.to(card), *tables[1:], *tail)
+        assert kernels.marked_walk.launches == n0 + (1 if batch.numel() else 0), name
+        want = kernels.marked_walk_plain(tdev.blocks, batch, tdev.prefix_sums, tdev.codes, tdev.c2i, *tail[:4],
+                                         tdev.text_sampled_sa, n)
+        assert torch.equal(got.cpu(), want), name
+
+
+# kernels.MARKED_EAGER_FROM for each visit mode of the range-fed marked
+# walks: every visit reads the planes with the mark word, or after it.
+VISIT_MODES = {"eager": 1, "lazy": 1 << 30}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+@pytest.mark.parametrize("mark_ratio", [2, 4, 32])
+@pytest.mark.parametrize("mode", VISIT_MODES)
+def test_marked_walk_ranges_matches_plain(card, alphabet, mark_ratio, mode, monkeypatch):
+    """The range-fed marked walk, in either visit mode, equals its plain
+    version (the padded rows walked by marked_walk_plain: row 0's walk in
+    every idle slot) at caps 8 and 3: ranges tiling every row
+    (every slot live), every slot idle, ranges of every count class
+    reaching past bwt_len, one query; one launch per call, counted under
+    marked_walk and the entry's own count."""
+    monkeypatch.setattr(kernels, "MARKED_EAGER_FROM", VISIT_MODES[mode])
+    tdev, rng = _device_index(alphabet, 60_000, 50 + mark_ratio, mark_ratio=mark_ratio)
+    n = tdev.bwt_len
+    tables = [t.to(card) for t in (tdev.blocks, tdev.prefix_sums, tdev.codes, tdev.c2i)]
+    tail = (tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx, mark_ratio)
+    for cap in (8, 3):
+        tiles = torch.arange(0, n, cap)
+        batches = {
+            "every slot live": (tiles, torch.full_like(tiles, cap)),
+            "every slot idle": (tiles, torch.zeros_like(tiles)),
+            "count classes": (torch.from_numpy(rng.integers(n - 3000, n + 5, 4099)),
+                              torch.from_numpy(np.resize(np.array([0, 1, cap, cap + 7, 2]), 4099))),
+            "one query": (torch.tensor([n // 2]), torch.tensor([2])),
+        }
+        for name, (starts, counts) in batches.items():
+            want = kernels.marked_walk_ranges_plain(tdev.blocks, starts, counts, cap, tdev.prefix_sums, tdev.codes,
+                                                    tdev.c2i, *tail, tdev.text_sampled_sa, n)
+            n0, r0 = kernels.marked_walk.launches, kernels.marked_walk_ranges.launches
+            got = kernels.marked_walk_ranges(tables[0], starts.to(card), counts.to(card), cap, *tables[1:], *tail,
+                                             tdev.text_sampled_sa.to(card), n)
+            assert (kernels.marked_walk.launches, kernels.marked_walk_ranges.launches) == (n0 + 1, r0 + 1), name
+            assert torch.equal(got.cpu(), want), (name, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
+def test_marked_walk_wide_matches_plain_and_narrow(card, alphabet, monkeypatch):
+    """marked_walk_wide and marked_walk_ranges_wide on a built index in
+    groups of 2 blocks (the bases matter) equal their plain versions (rows
+    past either end included) and the narrow walks on rows inside the
+    index, at marks 2, 4 and 32, the range feed in both visit modes."""
+    import awry_tpu_torch.ops.wide as wide_mod
+
+    monkeypatch.setattr(wide_mod, "GROUP_SHIFT", 1)
+    for mark_ratio, eager_from in ((2, 1), (4, 1), (32, 1), (2, 1 << 30), (4, 1 << 30), (32, 1 << 30)):
+        monkeypatch.setattr(kernels, "MARKED_EAGER_FROM", eager_from)
+        rng = np.random.default_rng(60 + mark_ratio)
+        seq = _random_text(alphabet, 40_000, rng)
+        index = build_from_records([("x", seq)], FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4,
+                                                             locate_mark_ratio=mark_ratio))
+        wide, narrow = wide_mod.to_device_wide(index, card), to_device(index, card)
+        n = wide.bwt_len
+        rows = torch.from_numpy(np.concatenate([[0, n - 1, n + 3, -2], rng.integers(0, n, size=4095)])).to(card)
+        starts = torch.from_numpy(rng.integers(0, n - 12, size=3001)).to(card)
+        counts = torch.from_numpy(np.resize(np.array([0, 1, 3, 11]), 3001)).to(card)
+        lf = (wide.prefix_sums, wide.codes, wide.c2i, wide.num_planes, wide.mark_offset, alphabet.ambiguity_idx,
+              mark_ratio, wide.text_sampled_sa, n)
+        nlf = (narrow.prefix_sums, narrow.codes, narrow.c2i, narrow.num_planes, narrow.mark_offset,
+               alphabet.ambiguity_idx, mark_ratio, narrow.text_sampled_sa, n)
+        n0 = kernels.marked_walk_wide.launches
+        got = kernels.marked_walk_wide(wide.blocks, wide.bases, rows, *lf)
+        assert torch.equal(got, kernels.marked_walk_wide_plain(wide.blocks, wide.bases, rows, *lf))
+        assert torch.equal(got[4:], kernels.marked_walk(narrow.blocks, rows[4:], *nlf))
+        got = kernels.marked_walk_ranges_wide(wide.blocks, wide.bases, starts, counts, 4, *lf)
+        assert kernels.marked_walk_wide.launches == n0 + 2
+        assert torch.equal(got, kernels.marked_walk_ranges_wide_plain(wide.blocks, wide.bases, starts, counts, 4, *lf))
+        assert torch.equal(got, kernels.marked_walk_ranges(narrow.blocks, starts, counts, 4, *nlf))
+
+
+@pytest.mark.cuda
+def test_marked_capped_locate_walks_ranges(card):
+    """count_locate_capped_t on a marked index launches the range-fed walk
+    once and no flat walk, and gives the CPU's answers."""
+    rng = np.random.default_rng(70)
+    text = _random_text(Alphabet.NUCLEOTIDE, 60_000, rng)
+    index = build_from_records([("x", text)], FmBuildArgs(lookup_table_kmer_len=4, locate_mark_ratio=4))
+    on_card, on_cpu = (FmQueryEngine(index, device=d, use_verify=False) for d in (card, "cpu"))
+    queries = [text[s : s + 12] for s in rng.integers(0, len(text) - 12, size=3000)] + [text[5:9]]
+    qt, ql, flags = on_card._upload(*on_card.encode_queries(queries))
+    n0, r0 = kernels.marked_walk.launches, kernels.marked_walk_ranges.launches
+    out = count_locate_capped_t(on_card.device_index, qt, ql, 8, **flags)
+    assert (kernels.marked_walk.launches, kernels.marked_walk_ranges.launches) == (n0 + 1, r0 + 1)
+    want = count_locate_capped_t(on_cpu.device_index, *on_cpu._upload(*on_cpu.encode_queries(queries))[:2], 8,
+                                 **flags)
+    for x, y in zip(out, want):
+        assert torch.equal(x.cpu(), y)
+
+
 def _build_chunk(alphabet, card):
     """The last occ request batch of the device k-mer build of a small index
     (k = 7 nucleotide, 4 amino: every CTA's span is a few rows)."""
