@@ -47,7 +47,7 @@
 // mark_rank = mark milestone + popcount of the mark words masked to bits
 // [0, row & 255).
 //
-// The LF core (all three kernels): one round trip to device memory per
+// The walks' LF core: one round trip to device memory per
 // step.  A nucleotide row's planes are words 0-23 and its milestones words
 // 24-29, so one 128 B request (8 uint4 loads) brings both, and the
 // symbol's milestone is picked from registers (an amino step takes a
@@ -63,6 +63,33 @@
 // 160 B nucleotide row), plus 20 B of request/result I/O; a few dozen
 // integer operations.  A walk is a chain of dependent round trips, so a
 // batch also has a floor of its longest walk times one step's latency.
+//
+// backstep: a warp per tile of 32 rows.  Each row is copied whole into
+// shared memory by one bulk copy (cp.async.bulk, issued by the row's lane
+// and completed on the warp's mbarrier); then a thread per row steps it
+// from there: lf_of's arithmetic with every word read from shared memory,
+// an amino row's milestone too (staged_lf), and the mark rank and bit.
+// Staged rows sit at a stride of row_words | 4 words, so a quarter-warp's
+// 16 B reads fall in distinct banks; blocks of 8 warps (nucleotide, 44 KB
+// of tiles) or 4 (amino, 38 KB).
+//
+// Why (measured in turns on one H100 80GB HBM3 at 700 W, PERF.md section 6,
+// scripts/rank_kernel_study.py --kernels backstep,backstep_wide, L2 flushed
+// before each launch): one visit over GRCh38's 655,360 verify-walk rows (a
+// 625 MB table) takes 0.0505 ms against the parent's 0.0585 (a thread per
+// row and its 13 scattered loads; bound 0.0275), over a mark-32
+// partition's 655,360 rows (a 40 MB table) 0.0338 against 0.0388, over
+// 262,144 amino rows 0.0252 against 0.0274, one row 0.0073 against 0.0075;
+// backstep_wide 0.0474 against 0.0587.  The loads set the time, not the
+// arithmetic: a read floor issuing the parent's loads with no arithmetic
+// took 0.0617, one loading whole rows by 16 B pieces in order (each warp
+// load 32 consecutive pieces) 0.0553, and those loads staged in shared
+// memory with the arithmetic after them (design (a)) 0.0578.  The bulk
+// copies read the rows at 2.08 TB/s of row bytes against the parent's
+// 1.79.  Persistent warps with a ring of two tiles, stepping one while the
+// next one's copies run (design (b)), took 0.0524: fewer warps resident,
+// and nothing gained from the overlap.  The other designs and the floors
+// are in the study script (DESIGNS).
 //
 // marked_walk: one thread per row.  Per visit it reads the mark word of
 // the row's bit first; a marked row (or the walk's last visit) reads the
@@ -200,8 +227,8 @@
 // sectors they read), 8 B in per row (its row), 8 B more in (its steps)
 // and 16 B out per walked row.
 //
-// ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 48 / 68,
-// backstep_wide 42 / 67; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
+// ptxas (sm_90a, -Xptxas=-v), nucleotide / amino registers: backstep 34 / 41,
+// backstep_wide 40 / 38; marked_walk 53 / 63, marked_walk_wide 48 / 64; the
 // range-fed marked walk 72 / 80, wide 76 / 91; the range-fed sampled walk
 // 65 / 78, wide 64 / 80; the flat-row walk 64 / 77, wide 64 / 79;
 // sampled_walk_shard 63 / 76.  No spills.
@@ -215,6 +242,8 @@
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 // A read-only int64 load (the wide variants' group bases and SA values).
 __device__ __forceinline__ int64_t ldg64(const int64_t* p) {
@@ -423,22 +452,142 @@ __device__ __forceinline__ uint32_t mark_bit_of(const MarkWords& m, const RowAt&
   return (pick(m.w, r.word) >> r.bit) & 1u;
 }
 
-// mark: (mark_rank << 1) | mark_bit as uint32 (narrow: 31 bits of the
-// rank) or int64 (wide).
+// backstep's staged rows: a warp stages the 32 rows of a tile, one per
+// lane, in shared memory, each at a stride of row_words | 4 words (an odd
+// multiple of 4), so that 8 lanes' 16 B reads at one offset of 8 rows fall
+// in 8 distinct groups of 4 banks (40-word rows: 44, 72-word rows: 76).
+__host__ __device__ constexpr int staged_words(int row_words) { return row_words | 4; }
+
+// LF(row) from its staged words: lf_of's arithmetic, the milestone (amino
+// too) read from shared memory.
 template <int V, bool kWide>
-__global__ void backstep_kernel(const WalkTables t, int mark_offset, const int64_t* __restrict__ rows, int64_t n,
-                                int64_t* __restrict__ stepped, MarkRank<kWide>* __restrict__ mark) {
-  __shared__ CodeStep tab[1 << V];
-  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
-  RowWords<V> x;
-  load_row(r, x);
+__device__ __forceinline__ int64_t staged_lf(const uint32_t* s, const RowAt& r, const CodeStep* tab,
+                                             const WalkTables& t) {
+  uint32_t code = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) code |= ((s[8 * v + r.word] >> r.bit) & 1u) << v;
+  const CodeStep c = tab[code];
+  const uint32_t in_word = kFull >> (31u - r.bit);
+  uint32_t occ[8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) occ[w] = w < (int)r.word ? kFull : (w == (int)r.word ? in_word : 0u);
+  const uint4* s4 = reinterpret_cast<const uint4*>(s);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const uint32_t pol = ((c.scode >> v) & 1u) ? 0u : kFull;
+    const uint4 lo = s4[2 * v], hi = s4[2 * v + 1];
+    occ[0] &= lo.x ^ pol;
+    occ[1] &= lo.y ^ pol;
+    occ[2] &= lo.z ^ pol;
+    occ[3] &= lo.w ^ pol;
+    occ[4] &= hi.x ^ pol;
+    occ[5] &= hi.y ^ pol;
+    occ[6] &= hi.z ^ pol;
+    occ[7] &= hi.w ^ pol;
+  }
+  uint32_t count = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) count += __popc(occ[w]);
+  int64_t base = c.base + s[V * 8 + c.safe];
+  if constexpr (kWide) base += ldg64(t.ms_base + (int64_t)(r.blk >> t.group_shift) * t.card + c.safe);
+  return c.sentinel ? 0 : base + count;
+}
+
+// A staged row's visit: stepped[i] = LF(row), mark[i] = (mark_rank << 1) |
+// mark_bit (narrow: 31 bits of the rank, uint32; wide: int64).
+template <int V, bool kWide>
+__device__ __forceinline__ void staged_visit(const uint32_t* s, const RowAt& r, int mark_offset, const CodeStep* tab,
+                                             const WalkTables& t, int64_t i, int64_t* __restrict__ stepped,
+                                             MarkRank<kWide>* __restrict__ mark) {
   MarkWords m;
-  load_marks<kWide>(r, mark_offset, m, t);
-  stepped[i] = lf_of<V, kWide>(x, r, tab, t);
+  const uint2* mp = reinterpret_cast<const uint2*>(s + mark_offset);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint2 v = mp[w];
+    m.w[2 * w] = v.x;
+    m.w[2 * w + 1] = v.y;
+  }
+  m.mile = s[mark_offset + 8];
+  m.base = 0;
+  if constexpr (kWide) m.base = ldg64(t.mark_base + (r.blk >> t.group_shift));
+  stepped[i] = staged_lf<V, kWide>(s, r, tab, t);
   mark[i] = (mark_rank_of<kWide>(m, r) << 1) | mark_bit_of(m, r);
+}
+
+// The mbarrier and bulk-copy instructions backstep stages its rows with
+// (PTX ISA: mbarrier, cp.async.bulk).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// Tile `tile`'s rows into `stage`, arriving on `bar`: lane 0 sets the bytes
+// the barrier's phase waits for, each lane with a row copies it (one bulk
+// copy of its row_words words); returns the lane's RowAt.
+__device__ __forceinline__ RowAt issue_tile(const WalkTables& t, const int64_t* __restrict__ rows, int64_t n,
+                                            int64_t tile, uint32_t* stage, uint32_t bar, unsigned lane) {
+  const int64_t first = tile * 32;
+  const int live = n - first < 32 ? (int)(n - first) : 32;
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, (int)lane < live ? rows[first + lane] : 0);
+  const uint32_t bytes = (uint32_t)t.row_words * 4u;
+  if (lane == 0) bar_expect(bar, bytes * (uint32_t)live);
+  __syncwarp();
+  if ((int)lane < live) bulk_copy(smem_u32(stage + lane * staged_words(t.row_words)), r.row, bytes, bar);
+  return r;
+}
+
+// backstep (the head of this file's backstep note): a warp per tile of 32
+// rows.  Each lane with a row copies it into the warp's tile by one bulk
+// copy, completed on the warp's mbarrier; then each lane steps its own row
+// from shared memory.
+template <int V, bool kWide>
+__global__ void __launch_bounds__(kThreads) backstep_kernel(const WalkTables t, int mark_offset,
+                                                            const int64_t* __restrict__ rows, int64_t n,
+                                                            int64_t* __restrict__ stepped,
+                                                            MarkRank<kWide>* __restrict__ mark) {
+  extern __shared__ uint4 staged[];
+  __shared__ uint64_t bars[kWarps];
+  __shared__ CodeStep tab[1 << V];
+  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    bar_init(smem_u32(&bars[warp]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
+  const int sw = staged_words(t.row_words);
+  uint32_t* tile_words = reinterpret_cast<uint32_t*>(staged) + warp * 32 * sw;
+  const int64_t tile = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (tile >= (n + 31) >> 5) return;
+  const RowAt r = issue_tile(t, rows, n, tile, tile_words, smem_u32(&bars[warp]), lane);
+  bar_wait(smem_u32(&bars[warp]), 0);
+  const int64_t i = tile * 32 + lane;
+  if (i < n) staged_visit<V, kWide>(tile_words + lane * sw, r, mark_offset, tab, t, i, stepped, mark);
 }
 
 // text_pos[i] of row rows[i] by the marked walk, one thread per row: a row
@@ -700,9 +849,6 @@ __device__ __forceinline__ void marked_step(const WalkTables& t, const MarkedWal
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
 // A tile of 32 queries, one per lane: the lane's query start, its live
 // slots, min(count, cap) (one row each for the flat-row entry; for a shard,
 // one if the row is live in its window), and a shard row's steps so far.
@@ -932,18 +1078,30 @@ WalkTables widen(WalkTables t, int card, const void* ms_base, const void* mark_b
   return t;
 }
 
+// Shared memory a block of backstep stages its tiles in: below the 48 KB a
+// block takes without opting in (the step table and barriers beside it).
+constexpr int kStageBudget = 46 << 10;
+
 template <bool kWide>
 int launch_backstep(int device, const WalkTables& t, int nplanes, int mark_offset, const void* rows, int64_t n,
                     void* stepped, void* mark, void* stream) {
   set_device(device);
   cudaStream_t st = (cudaStream_t)stream;
   if (n > 0) {
+    // As many warps per block as their tiles fit kStageBudget: 8
+    // nucleotide, 4 amino.
+    const int tile_bytes = 32 * staged_words(t.row_words) * (int)sizeof(uint32_t);
+    const int fit = kStageBudget / tile_bytes;
+    const int warps = fit < kWarps ? fit : kWarps;
+    if (warps < 1) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((n + 32 * warps - 1) / (32 * warps));
+    const size_t smem = (size_t)warps * tile_bytes;
     if (nplanes == 3) {
-      backstep_kernel<3, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
-                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
+      backstep_kernel<3, kWide><<<grid, 32 * warps, smem, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                                (int64_t*)stepped, (MarkRank<kWide>*)mark);
     } else if (nplanes == 5) {
-      backstep_kernel<5, kWide><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, (const int64_t*)rows, n,
-                                                                    (int64_t*)stepped, (MarkRank<kWide>*)mark);
+      backstep_kernel<5, kWide><<<grid, 32 * warps, smem, st>>>(t, mark_offset, (const int64_t*)rows, n,
+                                                                (int64_t*)stepped, (MarkRank<kWide>*)mark);
     } else {
       return (int)cudaErrorInvalidValue;
     }

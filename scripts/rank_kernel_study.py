@@ -1,12 +1,30 @@
 #!/usr/bin/env python3
 """The kernels of awry_tpu_torch timed on one NVIDIA GPU against other builds
 of their sources, in turns, at the shapes chip_smoke.py's paths give them:
-the rank kernels (occ_pair, occ), window_read, the marked LF walk and the
-row-sampled walk.
+the rank kernels (occ_pair, occ), window_read, the marked LF walk, the
+row-sampled walk and backstep's one visit (and its 64-bit twin).
 
     python3 scripts/rank_kernel_study.py [--baseline DIR ...]
-        [--kernels occ_pair,occ,window_read,marked_walk,sampled_walk]
-        [--paths chr1,chr20,grch38,markless,amino,modeb] [--pairs] [--out PATH]
+        [--kernels occ_pair,occ,window_read,marked_walk,sampled_walk,backstep,backstep_wide]
+        [--paths chr1,chr20,grch38,pangenome,markless,amino,modeb] [--pairs] [--out PATH]
+
+backstep's study (``--kernels backstep,backstep_wide --paths
+grch38,pangenome,amino --baseline DIR``, DIR holding the parent's
+backstep.cu):
+
+- sites: one visit over the verify walk's rows (``grch38``: the 1 Gbp
+  table, far larger than L2; ``pangenome``: one partition's 655,360 rows
+  at mark 32, whose 40 MB of rows fit in L2), over 262,144 random rows of the
+  amino layout (``amino``: the V = 5 rows, 72 words), and backstep_wide
+  over the GRCh38 classic ranges' live rows at cap 8 on the wide index
+  (beside its narrow twin on the same rows);
+- contenders, in turns: every build, and the ``designs`` build (the
+  package's backstep.cu with ``DESIGNS`` appended) by designs (a) and
+  (b) and by the two read floors, each with its largest error against
+  the plain version (recorded, enforced for the package's build only), the
+  summed sectors a visit reads and their rate;
+- the one-row launch (FmIndex.backstep's shape) of every contender, in
+  turns, after each site.
 
 Builds (nvcc with the package's own flags, all started together):
 
@@ -102,6 +120,8 @@ I64 = ctypes.c_int64
 I32 = ctypes.c_int
 WALK = [I32, P, I64, I32, I32, P, P, P, I32, ctypes.c_uint32, P, I64, I64]  # the sampled walks' shared head
 MARKED = [I32, P, I64, I32, I32, P, P, P, I32, I32, I32]  # the marked walks' shared head
+BACKSTEP = [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, P, P, P]
+BACKSTEP_WIDE = [I32, P, I64, I32, I32, P, P, P, I32, P, P, I32, I32, I32, P, I64, P, P, P]
 # Each source's entry points and their argument types.
 ENTRIES = {
     "occ_pair.cu": {
@@ -111,7 +131,10 @@ ENTRIES = {
     },
     "window_read.cu": {"window_read": [I32, P, I64, P, I64, I32, P, P]},
     "backstep.cu": {
-        "backstep": [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, P, P, P],
+        "backstep": BACKSTEP,
+        "backstep_wide": BACKSTEP_WIDE,
+        **{f"backstep_{d}": BACKSTEP for d in ("tile", "ring", "floor_thread", "floor_coop")},
+        **{f"backstep_wide_{d}": BACKSTEP_WIDE for d in ("tile", "ring")},
         "marked_walk": [*MARKED, P, I64, I64, P, I64, P, P],
         "marked_walk_ranges": [*MARKED, I32, P, I64, I64, P, P, I64, I32, P, P, P],
         "sampled_walk": [*WALK, P, I64, P, P, P],
@@ -122,7 +145,7 @@ ENTRIES = {
 # The flat sampled walk of a backstep.cu without sampled_walk_ranges (the
 # parent's: one thread per row, sa_ratio an int, no cursor).
 PARENT_SAMPLED_WALK = [I32, P, I64, I32, I32, P, P, P, I32, I32, P, I64, I64, P, I64, P, P]
-KINDS = ("occ_pair", "occ", "window_read", "marked_walk", "sampled_walk")
+KINDS = ("occ_pair", "occ", "window_read", "marked_walk", "sampled_walk", "backstep", "backstep_wide")
 # Schedule (b) of the range-fed walk, appended to a copy of the package's
 # backstep.cu (it uses that file's LF core): the caller's inclusive prefix
 # sum `incl` of min(count, cap) places each query's live slots;
@@ -200,6 +223,293 @@ extern "C" int awry_sampled_walk_compact(int device, const void* blocks, int64_t
   return (int)cudaGetLastError();
 }
 """
+# backstep's other designs and its read floors, appended to a copy of the
+# package's backstep.cu (they use that file's row layout, step table,
+# staged rows and bulk copies), built as the baseline ``designs``; each C
+# entry takes awry_backstep's (or awry_backstep_wide's) arguments.
+#
+# (a) cooperative loads into shared memory: a warp per tile of 32 rows
+# loads the rows' 16 B pieces in order (each warp load 32 consecutive
+# pieces: 3.2 nucleotide rows), stages them, then steps a row per thread
+# (staged_visit); blocks of 8 warps (nucleotide) or 4 (amino).
+# (b) the package's bulk copies into a ring: persistent warps, each with
+# two tiles of 32 staged rows in flight, stepping one tile while the next
+# one's copies run; blocks of 4 warps (nucleotide) or 2 (amino).
+#
+# The read floors write one XOR word per row (to mark; stepped is left
+# as it is): floor_thread reads as the parent did, one thread per row and
+# its 13 loads (load_row, load_marks; amino: one milestone word beside the
+# planes, not after them); floor_coop reads as (a) does, the tile's 16 B
+# pieces in order, each lane's pieces XORed into its row's word in shared
+# memory.
+DESIGNS = r"""
+namespace {
+
+// Loads a lane keeps in flight while (a) stages its tile: every piece of a
+// nucleotide tile (10 per lane), an amino tile in three rounds of 6.
+template <int V>
+constexpr int kStageBatch = V == 3 ? 10 : 6;
+
+// The warp's tile of `live` rows (lane q's row block blk) copied into
+// `tile` by 16 B loads, 32 consecutive pieces per warp load.
+template <int V>
+__device__ __forceinline__ void stage_tile(const WalkTables& t, uint32_t blk, int live, unsigned lane,
+                                           uint32_t* tile) {
+  const int pieces = t.row_words >> 2;
+  const int sw = staged_words(t.row_words);
+  const int total = live * pieces;
+  const int dq = 32 / pieces, dc = 32 - dq * pieces;  // a round moves a lane 32 pieces on
+  int q = (int)lane / pieces, c = (int)lane - q * pieces;
+  for (int base = 0; base < total; base += 32 * kStageBatch<V>) {
+    uint4 v[kStageBatch<V>];
+    int dst[kStageBatch<V>];
+#pragma unroll
+    for (int k = 0; k < kStageBatch<V>; ++k) {
+      const uint32_t b = __shfl_sync(kFull, blk, q & 31);
+      dst[k] = -1;
+      if (base + 32 * k + (int)lane < total) {
+        v[k] = __ldg(reinterpret_cast<const uint4*>(t.blocks + (int64_t)b * t.row_words) + c);
+        dst[k] = q * sw + 4 * c;
+      }
+      c += dc;
+      q += dq;
+      if (c >= pieces) {
+        c -= pieces;
+        ++q;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch<V>; ++k) {
+      if (dst[k] >= 0) *reinterpret_cast<uint4*>(tile + dst[k]) = v[k];
+    }
+  }
+  __syncwarp();
+}
+
+template <int V, bool kWide>
+__global__ void __launch_bounds__(kThreads) backstep_tile_kernel(const WalkTables t, int mark_offset,
+                                                                 const int64_t* __restrict__ rows, int64_t n,
+                                                                 int64_t* __restrict__ stepped,
+                                                                 MarkRank<kWide>* __restrict__ mark) {
+  extern __shared__ uint4 staged[];
+  __shared__ CodeStep tab[1 << V];
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
+  const unsigned lane = threadIdx.x & 31u;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31u);
+  if (first >= n) return;
+  const int live = n - first < 32 ? (int)(n - first) : 32;
+  const int64_t i = first + lane;
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, (int)lane < live ? rows[i] : 0);
+  const int sw = staged_words(t.row_words);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(staged) + (threadIdx.x >> 5) * 32 * sw;
+  stage_tile<V>(t, r.blk, live, lane, tile);
+  if ((int)lane < live) staged_visit<V, kWide>(tile + lane * sw, r, mark_offset, tab, t, i, stepped, mark);
+}
+
+template <int V, bool kWide>
+__global__ void __launch_bounds__(kThreads) backstep_ring_kernel(const WalkTables t, int mark_offset,
+                                                                 const int64_t* __restrict__ rows, int64_t n,
+                                                                 int64_t* __restrict__ stepped,
+                                                                 MarkRank<kWide>* __restrict__ mark) {
+  extern __shared__ uint4 staged[];
+  __shared__ uint64_t bars[kWarps][2];
+  __shared__ CodeStep tab[1 << V];
+  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  if (lane == 0) {
+    bar_init(smem_u32(&bars[warp][0]));
+    bar_init(smem_u32(&bars[warp][1]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_code_steps<V>(tab, t.prefix_sums, t.codes, t.c2i, t.ambiguity_idx);
+  const int sw = staged_words(t.row_words);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(staged) + warp * 2 * 32 * sw;
+  const int64_t ntiles = (n + 31) >> 5;
+  const int64_t step = (int64_t)gridDim.x * warps;
+  int64_t tile = (int64_t)blockIdx.x * warps + warp;
+  if (tile >= ntiles) return;
+  RowAt cur = issue_tile(t, rows, n, tile, ring, smem_u32(&bars[warp][0]), lane);
+  for (uint32_t j = 0; tile < ntiles; ++j, tile += step) {
+    // The j-th tile sits in stage j & 1, that stage's (j >> 1)-th use.
+    RowAt nxt = cur;
+    if (tile + step < ntiles) {
+      const uint32_t s = (j + 1) & 1u;
+      // The stage's last reads were generic: order them before the copies' writes.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      nxt = issue_tile(t, rows, n, tile + step, ring + s * 32 * sw, smem_u32(&bars[warp][s]), lane);
+    }
+    bar_wait(smem_u32(&bars[warp][j & 1u]), (j >> 1) & 1u);
+    const int64_t i = tile * 32 + lane;
+    if (i < n) staged_visit<V, kWide>(ring + (j & 1u) * 32 * sw + lane * sw, cur, mark_offset, tab, t, i, stepped, mark);
+    __syncwarp();
+    cur = nxt;
+  }
+}
+
+template <int V>
+__global__ void floor_thread_kernel(const WalkTables t, int mark_offset, const int64_t* __restrict__ rows, int64_t n,
+                                    uint32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, rows[i]);
+  RowWords<V> x;
+  load_row(r, x);
+  MarkWords m;
+  load_marks<false>(r, mark_offset, m, t);
+  uint32_t acc = m.mile;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) acc ^= x.plane[v][w];
+  }
+  if constexpr (RowWords<V>::kMiles) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) acc ^= x.mile[w];
+  } else {
+    acc ^= __ldg(r.row + V * 8 + (r.bit & 15u));
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) acc ^= m.w[w];
+  out[i] = acc;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) floor_coop_kernel(const WalkTables t, const int64_t* __restrict__ rows,
+                                                              int64_t n, uint32_t* __restrict__ out) {
+  __shared__ uint32_t acc[kThreads];
+  const unsigned lane = threadIdx.x & 31u;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31u);
+  if (first >= n) return;
+  const int live = n - first < 32 ? (int)(n - first) : 32;
+  const int64_t i = first + lane;
+  const RowAt r = row_at(t.blocks, t.nbits, t.row_words, (int)lane < live ? rows[i] : 0);
+  uint32_t* a = acc + (threadIdx.x & ~31u);
+  a[lane] = 0;
+  __syncwarp();
+  const int pieces = t.row_words >> 2;
+  const int total = live * pieces;
+  const int dq = 32 / pieces, dc = 32 - dq * pieces;
+  int q = (int)lane / pieces, c = (int)lane - q * pieces;
+  for (int base = 0; base < total; base += 32 * kStageBatch<V>) {
+    uint32_t x[kStageBatch<V>];
+    int dst[kStageBatch<V>];
+#pragma unroll
+    for (int k = 0; k < kStageBatch<V>; ++k) {
+      const uint32_t b = __shfl_sync(kFull, r.blk, q & 31);
+      dst[k] = -1;
+      if (base + 32 * k + (int)lane < total) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(t.blocks + (int64_t)b * t.row_words) + c);
+        x[k] = v.x ^ v.y ^ v.z ^ v.w;
+        dst[k] = q;
+      }
+      c += dc;
+      q += dq;
+      if (c >= pieces) {
+        c -= pieces;
+        ++q;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch<V>; ++k) {
+      if (dst[k] >= 0) atomicXor(a + dst[k], x[k]);
+    }
+  }
+  __syncwarp();
+  if ((int)lane < live) out[i] = a[lane];
+}
+
+// (a): a tile per warp, blocks of as many warps as their tiles fit
+// kStageBudget.  (b): persistent, as many blocks as fit the card, each
+// warp's two tiles in kStageBudget.
+template <bool kWide, bool kRing>
+int launch_design(int device, const WalkTables& t, int nplanes, int mark_offset, const void* rows, int64_t n,
+                  void* stepped, void* mark, void* stream) {
+  set_device(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  const int warp_bytes = (kRing ? 2 : 1) * 32 * staged_words(t.row_words) * (int)sizeof(uint32_t);
+  const int fit = kStageBudget / warp_bytes;
+  const int warps = fit < kWarps ? fit : kWarps;
+  if (warps < 1 || (nplanes != 3 && nplanes != 5)) return (int)cudaErrorInvalidValue;
+  auto kernel = kRing ? (nplanes == 3 ? backstep_ring_kernel<3, kWide> : backstep_ring_kernel<5, kWide>)
+                      : (nplanes == 3 ? backstep_tile_kernel<3, kWide> : backstep_tile_kernel<5, kWide>);
+  const size_t smem = (size_t)warps * warp_bytes;
+  int64_t grid = (n + 32 * warps - 1) / (32 * warps);
+  if (kRing) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
+    const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    grid = grid < resident ? grid : resident;
+  }
+  kernel<<<(unsigned)grid, 32 * warps, smem, st>>>(t, mark_offset, (const int64_t*)rows, n, (int64_t*)stepped,
+                                                   (MarkRank<kWide>*)mark);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCoop>
+int launch_floor(int device, const WalkTables& t, int nplanes, int mark_offset, const void* rows, int64_t n,
+                 void* out, void* stream) {
+  set_device(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (nplanes != 3 && nplanes != 5) return (int)cudaErrorInvalidValue;
+  const int64_t* r = (const int64_t*)rows;
+  uint32_t* o = (uint32_t*)out;
+  if constexpr (kCoop) {
+    if (nplanes == 3) {
+      floor_coop_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(t, r, n, o);
+    } else {
+      floor_coop_kernel<5><<<blocks_for(n), kThreads, 0, st>>>(t, r, n, o);
+    }
+  } else {
+    if (nplanes == 3) {
+      floor_thread_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, r, n, o);
+    } else {
+      floor_thread_kernel<5><<<blocks_for(n), kThreads, 0, st>>>(t, mark_offset, r, n, o);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+WalkTables narrow_tables(const void* blocks, int64_t num_blocks, int row_words, const void* prefix_sums,
+                         const void* codes, const void* c2i, int ambiguity_idx) {
+  return walk_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx, nullptr, 0, 0);
+}
+
+WalkTables wide_tables(const void* blocks, int64_t num_blocks, int row_words, const void* prefix_sums,
+                       const void* codes, const void* c2i, int card, const void* ms_base, const void* mark_base,
+                       int group_shift, int ambiguity_idx) {
+  return widen(narrow_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx), card, ms_base,
+               mark_base, group_shift, nullptr);
+}
+
+}  // namespace
+
+#define NARROW_ENTRY(NAME, CALL)                                                                                   \
+  extern "C" int NAME(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes,             \
+                      const void* prefix_sums, const void* codes, const void* c2i, int mark_offset,                \
+                      int ambiguity_idx, const void* rows, int64_t n, void* stepped, void* mark, void* stream) {   \
+    const WalkTables t = narrow_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, ambiguity_idx);    \
+    return CALL;                                                                                                   \
+  }
+#define WIDE_ENTRY(NAME, CALL)                                                                                     \
+  extern "C" int NAME(int device, const void* blocks, int64_t num_blocks, int row_words, int nplanes,             \
+                      const void* prefix_sums, const void* codes, const void* c2i, int card, const void* ms_base,  \
+                      const void* mark_base, int group_shift, int mark_offset, int ambiguity_idx, const void* rows, \
+                      int64_t n, void* stepped, void* mark, void* stream) {                                        \
+    const WalkTables t = wide_tables(blocks, num_blocks, row_words, prefix_sums, codes, c2i, card, ms_base,        \
+                                     mark_base, group_shift, ambiguity_idx);                                       \
+    return CALL;                                                                                                   \
+  }
+
+NARROW_ENTRY(awry_backstep_tile, (launch_design<false, false>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream)))
+NARROW_ENTRY(awry_backstep_ring, (launch_design<false, true>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream)))
+NARROW_ENTRY(awry_backstep_floor_thread, (launch_floor<false>(device, t, nplanes, mark_offset, rows, n, mark, stream)))
+NARROW_ENTRY(awry_backstep_floor_coop, (launch_floor<true>(device, t, nplanes, mark_offset, rows, n, mark, stream)))
+WIDE_ENTRY(awry_backstep_wide_tile, (launch_design<true, false>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream)))
+WIDE_ENTRY(awry_backstep_wide_ring, (launch_design<true, true>(device, t, nplanes, mark_offset, rows, n, stepped, mark, stream)))
+"""
 # Swiss-Prot-shaped amino path (bench.py): 20 Mres, k = 5, 12-mer queries.
 AMINO_SYMBOLS = 20_000_000
 AMINO_KMER_LEN = 5
@@ -254,6 +564,7 @@ class _Build:
         self.walks_ranges = "backstep.cu" not in present or hasattr(self._lib, f"{name}_sampled_walk_ranges")
         self.walks_compact = hasattr(self._lib, f"{name}_sampled_walk_compact")
         self.walks_marked_ranges = "backstep.cu" not in present or hasattr(self._lib, f"{name}_marked_walk_ranges")
+        self.backstep_designs = hasattr(self._lib, f"{name}_backstep_tile")
         if not self.walks_ranges and hasattr(self._lib, f"{name}_sampled_walk"):
             self.awry_sampled_walk.argtypes = PARENT_SAMPLED_WALK
         self._fallback = fallback
@@ -262,24 +573,27 @@ class _Build:
         return getattr(self._fallback, attr)
 
 
-def _schedule_b_dir() -> str:
-    """A directory holding the package's backstep.cu with SCHEDULE_B
-    appended, built as the baseline ``schedule_b``."""
-    directory = os.path.join(STUDY_DIR, "schedule_b")
+def _appended_dir(name: str, source: str) -> str:
+    """A directory holding the package's backstep.cu with ``source``
+    appended, built as the baseline ``name``."""
+    directory = os.path.join(STUDY_DIR, name)
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(kernels.CSRC_DIR, "backstep.cu")) as f:
-        text = f.read() + SCHEDULE_B
+        text = f.read() + source
     with open(os.path.join(directory, "backstep.cu"), "w") as f:
         f.write(text)
     return directory
 
 
-def build_all(baselines: list[str], schedule_b: bool) -> tuple[dict, dict]:
-    """{name: lib} for every build ("new" first, then the baselines and,
-    with ``schedule_b``, schedule (b)), and each one's ptxas report."""
+def build_all(baselines: list[str], schedule_b: bool, designs: bool) -> tuple[dict, dict]:
+    """{name: lib} for every build ("new" first, then the baselines, with
+    ``schedule_b`` schedule (b) and with ``designs`` backstep's DESIGNS),
+    and each one's ptxas report."""
     os.makedirs(STUDY_DIR, exist_ok=True)
     if schedule_b:
-        baselines = [*baselines, _schedule_b_dir()]
+        baselines = [*baselines, _appended_dir("schedule_b", SCHEDULE_B)]
+    if designs:
+        baselines = [*baselines, _appended_dir("designs", DESIGNS)]
     pending = [_start_baseline(d) for d in baselines]
     new = kernels._lib()  # the package's own build
     with open(kernels.library_path() + ".log") as f:
@@ -292,6 +606,19 @@ def build_all(baselines: list[str], schedule_b: bool) -> tuple[dict, dict]:
         ptxas[name] = [ln.strip() for ln in text.splitlines() if "registers" in ln or "Compiling" in ln]
         libs[name] = _Build(out, name, present, new)
     return libs, ptxas
+
+
+class _Entry:
+    """``lib`` with ``entry`` in the place of its ``slot`` (awry_backstep or
+    awry_backstep_wide): a design of DESIGNS called through the package's
+    wrapper."""
+
+    def __init__(self, lib, slot: str, entry):
+        self._lib = lib
+        setattr(self, slot, entry)
+
+    def __getattr__(self, attr):
+        return getattr(self._lib, attr)
 
 
 @contextlib.contextmanager
@@ -316,6 +643,10 @@ def _table_names(dev) -> dict:
 def _serving_sites(run: dict, kinds, batch: int = cs.BATCH) -> list:
     """The full-batch calls of the path's first batch, labelled."""
     names, sites, steps = _table_names(run["engine"].device_index), [], 0
+    if "backstep" in kinds:
+        # backstep as one visit over each full-batch walk's rows, as chip_smoke times it.
+        sites += [("backstep", f"one visit over the walk's rows (mark {a[8]})", a[:8])
+                  for kind, a in run["calls"] if kind == "marked_walk" and a[1].shape[0] >= batch]
     for kind, a in run["calls"]:
         if kind.removesuffix("_ranges") not in kinds or a[1].shape[0] < batch:
             continue
@@ -381,9 +712,30 @@ def record_grch38(device, rng, kinds) -> list:
     kernels the classic path's ranges of its first batch at cap 8 (the
     wide engine's walk, phase 17)."""
     run = cs.grch38_path(device, rng)
-    if "marked_walk" in kinds:
-        run["calls"].append(("marked_walk_ranges", classic_ranges(run["engine"], run["batches"][0], 8)))
-    return _serving_sites(run, kinds)
+    sites = []
+    if "marked_walk" in kinds or "backstep_wide" in kinds:
+        ranges = classic_ranges(run["engine"], run["batches"][0], 8)
+        if "marked_walk" in kinds:
+            run["calls"].append(("marked_walk_ranges", ranges))
+        if "backstep_wide" in kinds:
+            sites.append(("backstep_wide", "one visit over the cap-8 ranges' live rows", wide_visit(run, ranges)))
+    return sites + _serving_sites(run, kinds)
+
+
+def wide_visit(run: dict, ranges: tuple) -> tuple:
+    """backstep_wide's call over the live rows of a classic ranges call (as
+    chip_smoke's phase 17 times it: the wide index of the path's host
+    index), and its narrow twin's call on the same rows."""
+    from awry_tpu_torch.ops.wide import to_device_wide
+
+    narrow = run["engine"].device_index
+    wide = to_device_wide(run["index"], narrow.blocks.device)
+    blocks, starts, counts, cap, *_ = ranges
+    live = torch.arange(cap, device=starts.device)[None, :] < counts.clamp(0, cap)[:, None]
+    rows = kernels.slot_rows(starts, counts, cap)[live]
+    tail = (narrow.num_planes, narrow.mark_offset, narrow.alphabet.ambiguity_idx)
+    call = (wide.blocks, wide.bases, rows, wide.prefix_sums, wide.codes, wide.c2i, *tail)
+    return call, (blocks, rows, narrow.prefix_sums, narrow.codes, narrow.c2i, *tail)
 
 
 def record_pangenome(device, rng, kinds) -> list:
@@ -443,7 +795,17 @@ def record_amino(device, rng, kinds) -> list:
     )
     starts = rng.integers(0, AMINO_SYMBOLS - AMINO_QLEN, size=AMINO_BATCH)
     batch = [text_np[s : s + AMINO_QLEN].tobytes() for s in starts.tolist()]
-    return _markless_sites(index, batch, device, kinds)
+    sites = []
+    if "backstep" in kinds:
+        # The V = 5 layout (72-word rows, mark 4): AMINO_BATCH random rows, one visit each.
+        dev = to_device(index, device)
+        rows = torch.from_numpy(rng.integers(0, index.bwt_len, size=AMINO_BATCH)).to(device)
+        sites.append(("backstep", f"{AMINO_BATCH} random rows (mark {dev.mark_ratio})",
+                      (dev.blocks, rows, dev.prefix_sums, dev.codes, dev.c2i, dev.num_planes, dev.mark_offset,
+                       dev.alphabet.ambiguity_idx)))
+    if "sampled_walk" in kinds:
+        sites += _markless_sites(index, batch, device, kinds)
+    return sites
 
 
 # -- timing ----------------------------------------------------------------------------
@@ -568,8 +930,43 @@ def _sampled_contenders(libs: dict, args) -> dict:
     return out
 
 
+# backstep's designs and read floors in the designs build, by the entry
+# that takes the wrapper's slot.
+BACKSTEP_DESIGNS = {
+    "backstep": {"(a) staged loads": "backstep_tile", "(b) bulk ring": "backstep_ring",
+                 "read floor, thread per row": "backstep_floor_thread",
+                 "read floor, cooperative": "backstep_floor_coop"},
+    "backstep_wide": {"(a) staged loads": "backstep_wide_tile", "(b) bulk ring": "backstep_wide_ring"},
+}
+
+
+def _backstep_contenders(libs: dict, kind: str, args, twin=None) -> dict:
+    """backstep or backstep_wide on every build (the designs build by each
+    of its designs and floors); the wide kernel also as its narrow twin
+    (the package's backstep on the narrow rows: ``twin``)."""
+    out = {}
+    for name, lib in libs.items():
+        if getattr(lib, "backstep_designs", False):
+            for label, entry in BACKSTEP_DESIGNS[kind].items():
+                out[label] = lambda e=_Entry(lib, f"awry_{kind}", getattr(lib, f"awry_{entry}")): _launch(e, kind, args)
+        elif not getattr(lib, "walks_compact", False):
+            out[name] = lambda lib=lib: _launch(lib, kind, args)
+    if twin is not None:
+        out["new, narrow twin"] = lambda: _launch(libs["new"], "backstep", twin)
+    return out
+
+
+def _launch(lib, kind: str, args):
+    with using(lib):
+        return getattr(kernels, kind)(*args)
+
+
 def contenders(libs: dict, kind: str, args) -> dict:
     """{name: fn} timed in turns at a site."""
+    if kind.startswith("backstep"):
+        return _backstep_contenders(libs, kind, args)
+    # The designs build is the package's but for backstep: its walks are not timed.
+    libs = {name: lib for name, lib in libs.items() if not getattr(lib, "backstep_designs", False)}
     if kind == "sampled_walk":
         return _sampled_contenders(libs, args)
     libs = {name: lib for name, lib in libs.items() if not getattr(lib, "walks_compact", False)}
@@ -584,11 +981,7 @@ def contenders(libs: dict, kind: str, args) -> dict:
 
         return out | {"new, by visits": by_visits}
 
-    def launch(lib):
-        with using(lib):
-            return getattr(kernels, kind)(*args)
-
-    out = {name: (lambda lib=lib: launch(lib)) for name, lib in libs.items()}
+    out = {name: (lambda lib=lib: _launch(lib, kind, args)) for name, lib in libs.items()}
     if kind == "window_read":
         flat, wbase, k = args
         idx = wbase.clamp(k - 1, flat.shape[0] - 1)[:, None] - torch.arange(k, device=flat.device)
@@ -646,7 +1039,8 @@ def marked_variants(libs: dict, kind: str, call, device, flush) -> dict:
         padded = kernels.slot_rows(starts, counts, cap).reshape(-1)
         live = torch.arange(cap, device=starts.device)[None, :] < counts.clamp(0, cap)[:, None]
         rows_of = {"live slots only": padded[live.reshape(-1)], "padded rows": padded}
-    libs = {name: lib for name, lib in libs.items() if not getattr(lib, "walks_compact", False)}
+    libs = {name: lib for name, lib in libs.items()
+            if not getattr(lib, "walks_compact", False) and not getattr(lib, "backstep_designs", False)}
     walkers = {name: (lambda a, lib=lib: _walk(lib, a)) for name, lib in libs.items()}
     out = {}
     fns = {}
@@ -899,7 +1293,52 @@ BOUNDS = {"occ_pair": cs.occ_pair_bound, "occ": cs.occ_bound, "window_read": cs.
           "sampled_walk": cs.sampled_walk_ranges_bound}
 
 
+def _backstep_parts(kind: str, call) -> tuple:
+    """(blocks, rows, the LF and mark arguments) of a backstep or
+    backstep_wide call."""
+    if kind == "backstep_wide":
+        return call[0], call[2], call[3:]
+    return call[0], call[1], call[2:]
+
+
+def backstep_row(libs, path: str, kind: str, label: str, call, device, flush) -> dict:
+    """backstep or backstep_wide at one site (backstep_wide's ``call``: its
+    arguments and its narrow twin's): every build, design and read floor in
+    turns beside the bound (chip_smoke.backstep_bound; the wide kernel's 4 B
+    more per row), the summed sectors a visit reads (its row's whole
+    sectors; the floors and designs read no more) and their rate at each
+    contender's ms; then the one-row launch (FmIndex.backstep's shape) in
+    turns.  Only the package's build is held to the plain version."""
+    call, twin = call if kind == "backstep_wide" else (call, None)
+    blocks, rows, rest = _backstep_parts(kind, call)
+    nbytes, ops = cs.backstep_bound(blocks, rows, *rest)
+    n = int(rows.shape[0])
+    nbytes += n * 4 if twin is not None else 0
+    summed = n * blocks.shape[1] * 4
+    row = {"path": path, "kernel": kind, "site": label, "requests": n, "bytes": nbytes, "ops": ops,
+           "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.INT32_OPS_PER_S) * 1e3,
+           "summed_bytes": summed, "summed_sectors": summed // 32}
+    plain = _plain(kind, call)
+    twin_plain = kernels.backstep_plain(*twin) if twin is not None else None
+    fns = _backstep_contenders(libs, kind, call, twin)
+    errs = {name: cs.result_err(fn(), twin_plain if name == "new, narrow twin" else plain)
+            for name, fn in fns.items()}
+    if errs["new"] != 0 or errs.get("new, narrow twin", 0) != 0:
+        raise AssertionError(f"{kind} disagrees with its plain version: max abs err {errs}")
+    ms, times = in_turns(fns, device, flush)
+    row.update(max_abs_err=errs, ms=ms, turns_ms=times,
+               summed_rate_tb_s={name: summed / (t * 1e-3) / 1e12 for name, t in ms.items()})
+    first = tuple(a[:1].clone() if a is rows else a for a in call)
+    first_twin = None if twin is None else (twin[0], twin[1][:1].clone(), *twin[2:])
+    ms1, times1 = in_turns(_backstep_contenders(libs, kind, first, first_twin), device, flush)
+    row["one_row"] = {"ms": ms1, "turns_ms": times1}
+    log(json.dumps(row))
+    return row
+
+
 def site_row(libs, path: str, kind: str, label: str, call, device, flush) -> dict:
+    if kind.startswith("backstep"):
+        return backstep_row(libs, path, kind, label, call, device, flush)
     nbytes, ops, *walks = BOUNDS[kind](*call)
     row = {"path": path, "kernel": kind, "site": label, "requests": int(call[1].shape[0]),
            "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.INT32_OPS_PER_S) * 1e3}
@@ -943,7 +1382,7 @@ def main() -> int:
     card = cs.card_line()
     log(f"device: {card}")
     t0 = time.perf_counter()
-    libs, ptxas = build_all(args.baseline, "sampled_walk" in kinds)
+    libs, ptxas = build_all(args.baseline, "sampled_walk" in kinds, bool(kinds & {"backstep", "backstep_wide"}))
     log(f"builds {list(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, lines in ptxas.items():
         for ln in lines:

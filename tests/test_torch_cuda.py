@@ -22,6 +22,7 @@ from awry_tpu_torch.ops import (
     kernels,
     lf_walk,
     populate_kmer_table_device,
+    rank,
     to_device,
 )
 
@@ -120,18 +121,39 @@ def test_occ_pair_matches_plain(card, alphabet, pairs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mark_ratio", [1, 4, 32])
 @pytest.mark.parametrize("alphabet", [Alphabet.NUCLEOTIDE, Alphabet.AMINO])
-def test_backstep_matches_plain(card, alphabet):
-    tdev, rng = _device_index(alphabet, 60_000, 3, mark_ratio=4)
-    args = [t.to(card) for t in (tdev.blocks, tdev.prefix_sums, tdev.codes, tdev.c2i)]
-    n = tdev.bwt_len
-    rows = torch.from_numpy(np.concatenate([[0, n - 1, n + 300, -4], rng.integers(0, n, size=4095)])).to(card)
-    tail = (tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx)
-    n0 = kernels.backstep.launches
-    got = kernels.backstep(args[0], rows, *args[1:], *tail)
-    assert kernels.backstep.launches == n0 + 1
-    want = kernels.backstep_plain(args[0], rows, *args[1:], *tail)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+def test_backstep_matches_plain(card, alphabet, mark_ratio, monkeypatch):
+    """backstep and backstep_wide (groups of 2 blocks, so the bases matter)
+    equal their plain versions on random rows and on every case of
+    tests/backstep_cases.py (row counts around a warp's tile and a block,
+    block edges, the table's edges and the sentinel's row, rows past either
+    end, repeated and unsorted rows), each call one launch."""
+    import awry_tpu_torch.ops.wide as wide_mod
+
+    from .backstep_cases import CASES, case_rows
+
+    monkeypatch.setattr(wide_mod, "GROUP_SHIFT", 1)
+    rng = np.random.default_rng(3)
+    index = build_from_records([("x", _random_text(alphabet, 60_000, rng))],
+                               FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=4, locate_mark_ratio=mark_ratio))
+    tdev, wide = to_device(index, card), wide_mod.to_device_wide(index, card)
+    n, nbits = tdev.bwt_len, tdev.blocks.shape[0] * 256
+    tail = (tdev.prefix_sums, tdev.codes, tdev.c2i, tdev.num_planes, tdev.mark_offset, alphabet.ambiguity_idx)
+    wtail = (wide.prefix_sums, wide.codes, wide.c2i, wide.num_planes, wide.mark_offset, alphabet.ambiguity_idx)
+    sentinel = int(torch.nonzero(rank.symbol_at(tdev, torch.arange(n, device=card)) == 0)[0])
+    cases = {"random": np.concatenate([[0, n - 1, n + 300, -4], rng.integers(0, n, size=4095)])}
+    cases |= {case: case_rows(case, n, nbits, sentinel, seed=i) for i, case in enumerate(CASES)}
+    for case, r in cases.items():
+        rows = torch.from_numpy(r).to(card)
+        n0, w0 = kernels.backstep.launches, kernels.backstep_wide.launches
+        got = kernels.backstep(tdev.blocks, rows, *tail)
+        got_wide = kernels.backstep_wide(wide.blocks, wide.bases, rows, *wtail)
+        assert (kernels.backstep.launches, kernels.backstep_wide.launches) == (n0 + 1, w0 + 1), case
+        want = kernels.backstep_plain(tdev.blocks, rows, *tail)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), case
+        want = kernels.backstep_wide_plain(wide.blocks, wide.bases, rows, *wtail)
+        assert torch.equal(got_wide[0], want[0]) and torch.equal(got_wide[1], want[1]), case
 
 
 @pytest.mark.cuda
