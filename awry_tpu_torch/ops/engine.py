@@ -24,10 +24,19 @@ padded wire batch is cut into ``data`` equal contiguous slices, each slice
 is served on its slot's device through the path above, and the results
 merge in query order.  The JAX seam wraps every kernel in ``shard_map``;
 here a slice is simply served by the engine of its slot's device.
+
+Spans (``utils.profiling.span``, recorded only while a ``torch.profiler``
+runs) name the parts of serving, nested as they run: ``awry.encode``;
+``awry.dispatch#n`` (the engine's n-th batch) holding ``awry.upload``,
+``awry.launch`` and ``awry.to_host``; ``awry.assemble#n`` (the same n)
+holding ``awry.d2h_wait``, ``awry.verify_finish`` (with ``awry.redispatch``),
+``awry.flat_positions`` (with ``awry.overcap_expand``) and ``awry.localize``.
+``engine.stats`` counts what serving did (``STATS``).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -35,6 +44,7 @@ import torch
 
 from ..alphabet import encode_ascii, index_to_ascii_table
 from ..index import FmIndexData
+from ..utils.profiling import Counters, span
 from . import kernels
 from .device_index import TEXT_PAD_WORDS, resolve_device, to_device
 from .locate import count_locate_capped_t, lf_walk
@@ -44,6 +54,14 @@ from .wide import to_device_wide
 
 # Rows per over-cap locate slab (bounds the device expansion's memory).
 _OVERCAP_WALK_SLAB = 8 * 1024 * 1024
+
+# engine.stats: batches and queries assembled; slices served by the verify
+# path, those of them on the fast path, their wide-settled and re-dispatched
+# lanes and queries with more than one hit; queries over cap and the rows
+# their expansion walks; bytes read from the device outside the pinned
+# copies; blocking device reads.
+STATS = ("batches", "queries", "verify_batches", "fast_path_batches", "wide_lanes", "redis_lanes",
+         "multi_hit_queries", "overcap_queries", "overcap_rows", "pageable_d2h_bytes", "host_syncs")
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -168,15 +186,8 @@ class FmQueryEngine:
             self.device_index = dev = to_device_wide(index, self.device)
         else:
             self.device_index = dev = to_device(index, self.device, slots=slots and self._verify_enabled)
-        # Serving-shape counters, updated per verify batch.
-        self.stats = {
-            "batches": 0,
-            "queries": 0,
-            "fast_path_batches": 0,
-            "wide_lanes": 0,
-            "redis_lanes": 0,
-            "multi_hit_queries": 0,
-        }
+        self.stats = Counters(STATS)
+        self._batch_seq = itertools.count()
         self._wire_packed = dev.alphabet.cardinality <= 16
         if self._wire_packed:
             dense_lut = dev.dense.cpu().numpy().astype(np.int8)
@@ -235,8 +246,9 @@ class FmQueryEngine:
     def encode_queries(self, queries) -> tuple[np.ndarray, np.ndarray]:
         """Encode + pad str/bytes queries into the host wire: (wire, qlens)
         numpy arrays (qlens uint8 when every query is <= 255 symbols)."""
-        qsyms, qlens = encode_query_batch(self.device_index.alphabet, queries, min_batch=max(16, self._data_shards))
-        wire = pack_wire(qsyms, qlens, self._crumb_lut)
+        with span("awry.encode"):
+            qsyms, qlens = encode_query_batch(self.device_index.alphabet, queries, min_batch=max(16, self._data_shards))
+            wire = pack_wire(qsyms, qlens, self._crumb_lut)
         if qlens.max(initial=0) <= 255:
             qlens = qlens.astype(np.uint8)
         return wire, qlens
@@ -249,8 +261,12 @@ class FmQueryEngine:
 
     def _upload(self, wire: np.ndarray, qlens: np.ndarray):
         """Wire batch -> (qt int32[L, B], qlens int64[B], kernel flags) on the
-        device (upload_wire)."""
-        return upload_wire(wire, qlens, self.device, self._crumb_inv, self._wire_packed, self.device_index.kmer_len)
+        device (upload_wire); the flags carry this engine's stats, where the
+        search counts its host syncs."""
+        with span("awry.upload"):
+            qt, ql, flags = upload_wire(wire, qlens, self.device, self._crumb_inv, self._wire_packed,
+                                        self.device_index.kmer_len)
+        return qt, ql, {**flags, "stats": self.stats}
 
     # -- public API --------------------------------------------------------------
     def count_batch(self, queries) -> np.ndarray:
@@ -342,13 +358,14 @@ class FmQueryEngine:
         tensors and an event recorded after the copies (None on the CPU)."""
         if self.device.type != "cuda":
             return list(tensors), None
-        hosts = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            hosts.append(h)
-        event = torch.cuda.Event()
-        event.record()
+        with span("awry.to_host"):
+            hosts = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                hosts.append(h)
+            event = torch.cuda.Event()
+            event.record()
         return hosts, event
 
     def _verify_for(self, wire: np.ndarray) -> bool:
@@ -384,16 +401,21 @@ class FmQueryEngine:
         """Upload one wire batch and launch its path: (kind, the outputs the
         host assembles from, the padded batch size of a verify bundle)."""
         qt, ql, flags = self._upload(wire, qlens)
-        if self._verify_for(wire):
-            bundle, starts, _ = self._verify_kernel(self.device_index, qt, ql, self._verify_s, **flags)
-            return "verify", (bundle,), starts.shape[0]
-        counts, text_pos, starts, _ = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
-        return "classic", (counts, text_pos, starts), None
+        with span("awry.launch"):
+            if self._verify_for(wire):
+                bundle, starts, _ = self._verify_kernel(self.device_index, qt, ql, self._verify_s, **flags)
+                return "verify", (bundle,), starts.shape[0]
+            counts, text_pos, starts, _ = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
+            return "classic", (counts, text_pos, starts), None
 
-    def _dispatch(self, batch, cap) -> list[tuple]:
-        """Launch one batch: per data slice, its engine and what its
-        assembly needs."""
-        return [(eng, eng._dispatch_slice(w, q, m, cap)) for eng, w, q, m in self._slices(*self._wire_of(batch))]
+    def _dispatch(self, batch, cap) -> tuple[int, list[tuple]]:
+        """Launch one batch: its number n (``awry.dispatch#n``, and the
+        ``awry.assemble#n`` of its assembly) and, per data slice, its engine
+        and what its assembly needs."""
+        wire, qlens, n = self._wire_of(batch)
+        seq = next(self._batch_seq)
+        with span("awry.dispatch", seq):
+            return seq, [(eng, eng._dispatch_slice(w, q, m, cap)) for eng, w, q, m in self._slices(wire, qlens, n)]
 
     def _dispatch_slice(self, wire, qlens, n, cap):
         kind, outs, padded = self._device_outputs(wire, qlens, cap)
@@ -454,34 +476,42 @@ class FmQueryEngine:
             if eng.device.type == "cuda":
                 torch.cuda.synchronize(eng.device)
 
-    def _assemble(self, parts: list, cap):
+    def _assemble(self, dispatched: tuple, cap):
         """The slices' results of one dispatched batch, merged in query
         order."""
-        out = [eng._assemble_slice(*item, cap) for eng, item in parts]
-        if len(out) == 1:
-            return out[0]
-        offsets, total = [np.zeros(1, dtype=np.int64)], 0
-        for o in out:
-            offsets.append(o[3][1:] + total)
-            total += int(o[3][-1])
-        return (*(np.concatenate([o[i] for o in out]) for i in range(3)), np.concatenate(offsets))
+        seq, parts = dispatched
+        with span("awry.assemble", seq):
+            out = [eng._assemble_slice(*item, cap) for eng, item in parts]
+            self.stats.add(batches=1, queries=sum(item[1] for _, item in parts))
+            if len(out) == 1:
+                return out[0]
+            offsets, total = [np.zeros(1, dtype=np.int64)], 0
+            for o in out:
+                offsets.append(o[3][1:] + total)
+                total += int(o[3][-1])
+            return (*(np.concatenate([o[i] for o in out]) for i in range(3)), np.concatenate(offsets))
 
     def _assemble_slice(self, kind, n, wire, qlens, hosts, event, batch, cap):
         if event is not None:
-            event.synchronize()
+            with span("awry.d2h_wait"):
+                event.synchronize()
+            self.stats.add(host_syncs=1)
         arrays = [h.numpy() for h in hosts]
         if kind == "verify":
-            counts, flat_pos, offsets = self._flat_verify_finish(n, wire, qlens, cap, arrays[0], batch)
+            with span("awry.verify_finish"):
+                counts, flat_pos, offsets = self._flat_verify_finish(n, wire, qlens, cap, arrays[0], batch)
         else:
             counts, flat_pos, offsets = self._flat_classic(arrays, n, cap)
-        seq_idx, local = self._localize(flat_pos)
+        with span("awry.localize"):
+            seq_idx, local = self._localize(flat_pos)
         return counts.astype(np.uint64), seq_idx, local, offsets
 
     def _flat_classic(self, arrays, n, cap):
         counts, text_pos, starts = (a[:n] for a in arrays)
         offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
-        flat_pos = self._assemble_flat_positions(counts, text_pos, starts, offsets, cap)
+        with span("awry.flat_positions"):
+            flat_pos = self._assemble_flat_positions(counts, text_pos, starts, offsets, cap)
         return counts.astype(np.int64), flat_pos, offsets
 
     def _flat_verify_finish(self, n, wire, qlens, cap, bundle, batch):
@@ -494,40 +524,37 @@ class FmQueryEngine:
         )
         counts = counts_b[:n]
         redis = redis_b[:n]
-        st = self.stats
-        st["batches"] += 1
-        st["queries"] += n
         vg = lane_g < n
         # Redis lanes first, so that a stray one (about one per 512k batch at
         # chr1 scale) does not knock the batch off the fast path.
         sub_counts = sub_flat = sub_offsets = None
         idxs = np.nonzero(redis)[0]
         if len(idxs):
-            b = _bucket(len(idxs))
-            pad_idx = np.zeros(b, dtype=np.int64)  # padding rows repeat row 0, sliced off
-            pad_idx[: len(idxs)] = idxs
-            qt, ql, flags = self._upload(wire[pad_idx], qlens[pad_idx])
-            out = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
-            sub_counts, sub_flat, sub_offsets = self._flat_classic(
-                [t.cpu().numpy() for t in out[:3]], len(idxs), cap
-            )
+            with span("awry.redispatch"):
+                b = _bucket(len(idxs))
+                pad_idx = np.zeros(b, dtype=np.int64)  # padding rows repeat row 0, sliced off
+                pad_idx[: len(idxs)] = idxs
+                qt, ql, flags = self._upload(wire[pad_idx], qlens[pad_idx])
+                out = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
+                self.stats.add(host_syncs=3, pageable_d2h_bytes=sum(t.nbytes for t in out[:3]))
+                sub_counts, sub_flat, sub_offsets = self._flat_classic(
+                    [t.cpu().numpy() for t in out[:3]], len(idxs), cap
+                )
         c_nr = counts[~redis]
         if c_nr.min(initial=2) == 1 and c_nr.max(initial=0) == 1 and (
             sub_counts is None or (sub_counts == 1).all()
         ):
             # Fast path: every lane has exactly one hit (the common serving
             # shape); wide-settled and redis lanes scatter their one position.
-            st["fast_path_batches"] += 1
             flat = pos_u[:n].astype(np.int64)
             nw = int(vg.sum())
             if nw:
-                st["wide_lanes"] += nw
                 slot = np.argmax(ok_slot[vg], axis=1)
                 flat[lane_g[vg]] = pos_slot[vg, slot].astype(np.int64)
             if len(idxs):
-                st["redis_lanes"] += len(idxs)
                 counts[redis] = 1
                 flat[idxs] = sub_flat
+            self.stats.add(verify_batches=1, fast_path_batches=1, wide_lanes=nw, redis_lanes=len(idxs))
             return counts, flat, np.arange(n + 1, dtype=np.int64)
 
         if len(idxs):
@@ -537,9 +564,8 @@ class FmQueryEngine:
         flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
         wide_settled = np.zeros(n, dtype=bool)
         wide_settled[lane_g[vg]] = True
-        st["wide_lanes"] += int(wide_settled.sum())
-        st["redis_lanes"] += len(idxs)
-        st["multi_hit_queries"] += int((counts > 1).sum())
+        self.stats.add(verify_batches=1, wide_lanes=int(wide_settled.sum()), redis_lanes=len(idxs),
+                       multi_hit_queries=int((counts > 1).sum()))
         settled = (~redis) & (counts == 1) & ~wide_settled
         flat_pos[offsets[:-1][settled]] = pos_u[:n][settled].astype(np.int64)
         # Wide groups: verified slots land at the lane's offsets in BWT-row order.
@@ -576,20 +602,23 @@ class FmQueryEngine:
         )
         flat_pos[np.repeat(offsets[:-1], nov) + within] = vals
         if over.any():
-            o_counts = counts[over]
-            o_total = int(o_counts.sum())
-            o_cum = np.cumsum(o_counts)
-            o_within = np.arange(o_total, dtype=np.int64) - np.repeat(o_cum - o_counts, o_counts)
-            dst = np.repeat(offsets[:-1][over], o_counts) + o_within
-            d_starts = torch.from_numpy(starts[over].astype(np.int64)).to(self.device)
-            d_cum = torch.from_numpy(o_cum).to(self.device)
-            for s0 in range(0, o_total, _OVERCAP_WALK_SLAB):
-                m = min(_OVERCAP_WALK_SLAB, o_total - s0)
-                h = torch.arange(s0, s0 + m, device=self.device)
-                qid = torch.searchsorted(d_cum, h, right=True)
-                prev = torch.where(qid > 0, d_cum[(qid - 1).clamp_min(0)], 0)
-                walked = lf_walk(self.device_index, d_starts[qid] + (h - prev))
-                flat_pos[dst[s0 : s0 + m]] = walked.cpu().numpy()
+            with span("awry.overcap_expand"):
+                o_counts = counts[over]
+                o_total = int(o_counts.sum())
+                o_cum = np.cumsum(o_counts)
+                o_within = np.arange(o_total, dtype=np.int64) - np.repeat(o_cum - o_counts, o_counts)
+                dst = np.repeat(offsets[:-1][over], o_counts) + o_within
+                d_starts = torch.from_numpy(starts[over].astype(np.int64)).to(self.device)
+                d_cum = torch.from_numpy(o_cum).to(self.device)
+                for s0 in range(0, o_total, _OVERCAP_WALK_SLAB):
+                    m = min(_OVERCAP_WALK_SLAB, o_total - s0)
+                    h = torch.arange(s0, s0 + m, device=self.device)
+                    qid = torch.searchsorted(d_cum, h, right=True)
+                    prev = torch.where(qid > 0, d_cum[(qid - 1).clamp_min(0)], 0)
+                    walked = lf_walk(self.device_index, d_starts[qid] + (h - prev))
+                    self.stats.add(host_syncs=1, pageable_d2h_bytes=walked.nbytes)
+                    flat_pos[dst[s0 : s0 + m]] = walked.cpu().numpy()
+            self.stats.add(overcap_queries=len(o_counts), overcap_rows=o_total)
         return flat_pos
 
     def _localize(self, text_pos: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -62,11 +62,11 @@ the wide and shard variants, which are int64.
 
 A wrapper takes its plain version only when its inputs are CPU tensors; on
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
-launches in a ``launches`` attribute.  The kernels build on first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per source, all
-started together, then one link) into ``awry_tpu_torch/_build/``; the
-library is named by a hash of the sources and flags, so an edited source
-rebuilds.
+launches in a ``launches`` attribute, under a lock.  The kernels build on
+first use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per
+source, all started together, then one link) into ``awry_tpu_torch/_build/``;
+the library is named by a hash of the sources and flags, so an edited
+source rebuilds.
 """
 
 from __future__ import annotations
@@ -218,6 +218,18 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"kernel inputs must lie on one CUDA device or all on the CPU, got {[str(t.device) for t in tensors]}")
 
 
+_launch_lock = threading.Lock()
+
+
+def _count_launch(*wrappers) -> None:
+    """One launch on each wrapper's ``launches``, under a lock: client
+    threads launch at once.  Callers name the wrappers by the module's
+    bindings, so that a stand-in bound there counts in their place."""
+    with _launch_lock:
+        for w in wrappers:
+            w.launches += 1
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
@@ -290,7 +302,7 @@ def window_read(flat: torch.Tensor, wbase: torch.Tensor, k: int) -> torch.Tensor
             out.data_ptr(), _stream(flat.device),
         )
         _launch_check(rc, "window_read")
-        window_read.launches += 1
+        _count_launch(window_read)
     return out
 
 
@@ -381,7 +393,7 @@ def occ_pair(blocks, pos_a, pos_b, sym, codes, nplanes: int):
             occ_a.data_ptr(), occ_b.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "occ_pair")
-        occ_pair.launches += 1
+        _count_launch(occ_pair)
     return occ_a, occ_b
 
 
@@ -415,7 +427,7 @@ def occ(blocks, pos, sym, codes, nplanes: int) -> torch.Tensor:
             _stream(blocks.device),
         )
         _launch_check(rc, "occ")
-        occ.launches += 1
+        _count_launch(occ)
     return out
 
 
@@ -509,7 +521,7 @@ def backstep(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset: i
             rows.data_ptr(), r, stepped.data_ptr(), mark.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "backstep")
-        backstep.launches += 1
+        _count_launch(backstep)
     return stepped, mark
 
 
@@ -616,7 +628,7 @@ def marked_walk(blocks, rows, prefix_sums, codes, c2i, nplanes: int, mark_offset
             _stream(blocks.device),
         )
         _launch_check(rc, "marked_walk")
-        marked_walk.launches += 1
+        _count_launch(marked_walk)
     return out
 
 
@@ -666,8 +678,7 @@ def marked_walk_ranges(blocks, starts, counts, cap: int, prefix_sums, codes, c2i
             starts.data_ptr(), counts.data_ptr(), b, cap, cursor.data_ptr(), out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "marked_walk_ranges")
-        marked_walk.launches += 1
-        marked_walk_ranges.launches += 1
+        _count_launch(marked_walk, marked_walk_ranges)
     return out
 
 
@@ -743,7 +754,7 @@ def sampled_walk_launch(blocks, rows, prefix_sums, codes, c2i, nplanes: int, amb
             rows.data_ptr(), r, cursor.data_ptr(), out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "sampled_walk")
-        sampled_walk.launches += 1
+        _count_launch(sampled_walk)
     return out
 
 
@@ -827,7 +838,7 @@ def sampled_walk_ranges(blocks, starts, counts, cap: int, prefix_sums, codes, c2
             _stream(blocks.device),
         )
         _launch_check(rc, "sampled_walk_ranges")
-        sampled_walk.launches += 1
+        _count_launch(sampled_walk)
     return out
 
 
@@ -897,7 +908,7 @@ def occ_pair_wide(blocks, bases: WideBases, pos_a, pos_b, sym, codes, nplanes: i
             sym.data_ptr(), r, occ_a.data_ptr(), occ_b.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "occ_pair_wide")
-        occ_pair_wide.launches += 1
+        _count_launch(occ_pair_wide)
     return occ_a, occ_b
 
 
@@ -927,7 +938,7 @@ def occ_wide(blocks, bases: WideBases, pos, sym, codes, nplanes: int) -> torch.T
             out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "occ_wide")
-        occ_wide.launches += 1
+        _count_launch(occ_wide)
     return out
 
 
@@ -959,7 +970,7 @@ def backstep_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, nplan
             _stream(blocks.device),
         )
         _launch_check(rc, "backstep_wide")
-        backstep_wide.launches += 1
+        _count_launch(backstep_wide)
     return stepped, mark
 
 
@@ -998,7 +1009,7 @@ def marked_walk_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, np
             rows.data_ptr(), r, out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "marked_walk_wide")
-        marked_walk_wide.launches += 1
+        _count_launch(marked_walk_wide)
     return out
 
 
@@ -1042,8 +1053,7 @@ def marked_walk_ranges_wide(blocks, bases: WideBases, starts, counts, cap: int, 
             out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "marked_walk_ranges_wide")
-        marked_walk_wide.launches += 1
-        marked_walk_ranges_wide.launches += 1
+        _count_launch(marked_walk_wide, marked_walk_ranges_wide)
     return out
 
 
@@ -1088,7 +1098,7 @@ def sampled_walk_wide(blocks, bases: WideBases, rows, prefix_sums, codes, c2i, n
             out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "sampled_walk_wide")
-        sampled_walk_wide.launches += 1
+        _count_launch(sampled_walk_wide)
     return out
 
 
@@ -1130,7 +1140,7 @@ def sampled_walk_ranges_wide(blocks, bases: WideBases, starts, counts, cap: int,
             cursor.data_ptr(), out.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "sampled_walk_ranges_wide")
-        sampled_walk_wide.launches += 1
+        _count_launch(sampled_walk_wide)
     return out
 
 
@@ -1201,7 +1211,7 @@ def occ_pair_shard(blocks, first_block: int, total_blocks: int, starts, ends, sy
             sym.data_ptr(), r, new_starts.data_ptr(), new_ends.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "occ_pair_shard")
-        occ_pair_shard.launches += 1
+        _count_launch(occ_pair_shard)
     return new_starts, new_ends
 
 
@@ -1270,7 +1280,7 @@ def sampled_walk_shard(blocks, first_block: int, total_blocks: int, rows, steps,
             rows.data_ptr(), steps.data_ptr(), r, cursor.data_ptr(), _stream(blocks.device),
         )
         _launch_check(rc, "sampled_walk_shard")
-        sampled_walk_shard.launches += 1
+        _count_launch(sampled_walk_shard)
     return rows, steps
 
 

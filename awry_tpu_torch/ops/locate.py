@@ -86,6 +86,7 @@ def count_locate_capped_t(
     *,
     no_sentinel: bool = False,
     seeded_floor: bool = False,
+    stats=None,
 ):
     """Full-depth count + up to ``cap`` hits per query in one pass.
 
@@ -94,9 +95,9 @@ def count_locate_capped_t(
     -1 among the others marks a walk that could not end (a corrupt index).
     Queries with more than ``cap`` hits report their true count and their
     range, so the engine expands their remaining rows without a second
-    search."""
+    search.  ``stats``: search_ranges_t's."""
     starts, ends = search_ranges_t(
-        dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor
+        dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor, stats=stats
     )
     counts = counts_from_ranges(starts, ends)
     if not dev.has_marks and dev.wide:

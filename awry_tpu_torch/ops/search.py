@@ -47,6 +47,7 @@ def search_ranges_t(
     seeded_floor: bool = False,
     skip_idle: bool = True,
     update_fn=None,
+    stats=None,
 ):
     """Final (or step-``num_steps``) BWT ranges of a query batch.
 
@@ -61,7 +62,8 @@ def search_ranges_t(
     ``update_fn``: ``(starts, ends, sym) -> (starts, ends)`` in place of
     rank.update_range for the LF steps after the seed (the range-sharded
     engine's collective step, parallel/sharding.py; the counterpart of the
-    JAX search's ``update_fn``).
+    JAX search's ``update_fn``).  ``stats``: an engine's counters
+    (utils.profiling.Counters), given one ``host_syncs`` per live-mask check.
 
     Returns (starts, ends) int64[B], inclusive; empty iff start > end.
     """
@@ -95,8 +97,11 @@ def search_ranges_t(
     lower = k if (seeded_floor and seeded) else 1
     for i in range(lower, upper):
         active = (i >= steps_done) & (i < qlens) & (starts <= ends)
-        if skip_idle and not seeded_floor and not bool(active.any()):
-            continue
+        if skip_idle and not seeded_floor:
+            if stats is not None:
+                stats.add(host_syncs=1)
+            if not bool(active.any()):
+                continue
         if update_fn is None:
             new_starts, new_ends = update_range(dev, starts, ends, qt[L - 1 - i])
         else:
@@ -122,9 +127,10 @@ def counts_from_ranges(starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor
 
 
 def count_batch_kernel_t(
-    dev: FmDeviceIndex, qt, qlens, *, no_sentinel: bool = False, seeded_floor: bool = False, skip_idle: bool = True
+    dev: FmDeviceIndex, qt, qlens, *, no_sentinel: bool = False, seeded_floor: bool = False, skip_idle: bool = True,
+    stats=None,
 ) -> torch.Tensor:
     starts, ends = search_ranges_t(
-        dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor, skip_idle=skip_idle
+        dev, qt, qlens, no_sentinel=no_sentinel, seeded_floor=seeded_floor, skip_idle=skip_idle, stats=stats
     )
     return counts_from_ranges(starts, ends)

@@ -143,6 +143,7 @@ def count_locate_verify_t(
     *,
     no_sentinel: bool = False,
     seeded_floor: bool = False,
+    stats=None,
 ):
     """Fused seed-walk-verify count+locate.  qt: int32[L, B] transposed
     right-aligned queries; qlens int64[B].
@@ -152,9 +153,9 @@ def count_locate_verify_t(
     every lane with redis False), the global match position of each
     settled single-hit lane, the redis flags, and the wide groups (lane,
     per-slot positions, verified-slot bits, slots in BWT-row order);
-    (starts, ends) are the step-``s`` ranges."""
+    (starts, ends) are the step-``s`` ranges.  ``stats``: search_ranges_t's."""
     starts, ends = search_ranges_t(
-        dev, qt, qlens, num_steps=s, no_sentinel=no_sentinel, seeded_floor=seeded_floor
+        dev, qt, qlens, num_steps=s, no_sentinel=no_sentinel, seeded_floor=seeded_floor, stats=stats
     )
     width = counts_from_ranges(starts, ends)
     long_enough = qlens > s
@@ -244,6 +245,7 @@ def count_locate_slots_t(
     *,
     no_sentinel: bool = False,
     seeded_floor: bool = False,
+    stats=None,
 ):
     """Slot-verify count+locate: no post-seed rank step.  qt: int32[L, B]
     transposed right-aligned queries; qlens int64[B].
@@ -256,11 +258,12 @@ def count_locate_slots_t(
     multi-hit extended lanes, lanes with qlen <= s and hits, and multi-hit
     lanes past the wide_groups(B) budget are flagged redis.  Multi-hit
     settled lanes carry their slot positions in the wide groups.  Returns
-    the same ``(bundle, starts, ends)`` as count_locate_verify_t."""
+    the same ``(bundle, starts, ends)`` as count_locate_verify_t.
+    ``stats``: search_ranges_t's."""
     if s != dev.kmer_len or dev.vw_flat is None:
         raise ValueError("the slot path needs fat rows aligned at the seed step (s == kmer_len)")
     starts, ends = search_ranges_t(
-        dev, qt, qlens, num_steps=s, no_sentinel=no_sentinel, seeded_floor=seeded_floor
+        dev, qt, qlens, num_steps=s, no_sentinel=no_sentinel, seeded_floor=seeded_floor, stats=stats
     )
     width = counts_from_ranges(starts, ends)
     long_enough = qlens > s

@@ -1,49 +1,63 @@
-"""Profiling helpers: the port's copy of ``awry_tpu/utils/profiling.py``.
+"""Profiling helpers: the engine's spans and counters, and ``device_trace``.
 
-A wall-clock phase timer for build and query stages, and ``device_trace``,
-a ``torch.profiler`` trace around a block of work, exported as a Chrome
-trace (open it in Perfetto or chrome://tracing).  Nothing on the serving
-path uses either.
+``span(name)`` marks a part of the serving path.  While a ``torch.profiler``
+runs it is a ``torch.profiler.record_function``, so the part lands in the
+profiler's timeline as a user annotation, on the same clock as the kernels
+and copies it launched; otherwise it costs one flag check and makes nothing.
+``Counters`` is a dict of serving counters that client threads may add to
+at once.  ``device_trace`` is a ``torch.profiler`` trace around a block of
+work, exported as a Chrome trace (open it in Perfetto or chrome://tracing):
+the spans show there above the kernels they launched.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import sys
+import threading
 import time
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
-class PhaseTimer:
-    """Wall-clock per-phase accounting for index builds and query batches."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self, log=None):
-        self.phases: dict[str, float] = {}
-        self._log = log if log is not None else (lambda m: print(m, file=sys.stderr))
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.phases[name] = self.phases.get(name, 0.0) + dt
-            self._log(f"[phase] {name}: {dt:.3f}s")
+def span(name: str, ident=None):
+    """A context manager over one part of the serving path, named
+    ``name#ident`` (``name`` when ``ident`` is None).  With no profiler
+    running it is a shared no-op: no ``RecordFunction`` is made and the name
+    is not formatted.  The flag is the process's (a profiler started in one
+    thread turns spans on in every thread; whether a thread's spans are
+    recorded is the profiler's choice)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name if ident is None else f"{name}#{ident}")
 
-    def report(self) -> dict[str, float]:
-        return dict(self.phases)
+
+class Counters(dict):
+    """Named integer counters that several threads may add to at once: a
+    dict (read, reset and printed as one) whose ``add`` holds a lock."""
+
+    def __init__(self, names):
+        super().__init__((name, 0) for name in names)
+        self._lock = threading.Lock()
+
+    def add(self, **deltas: int) -> None:
+        with self._lock:
+            for name, n in deltas.items():
+                self[name] += n
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str, device=None):
     """A ``torch.profiler`` trace of the block: CUDA activity (beside the
     host ops that launch it) on a CUDA device, None meaning cuda:0, which
-    raises without one; host activity alone for ``device="cpu"``.  Yields
-    the profiler (``key_averages()`` and the like); on exit, after the card
-    has finished the block's work, writes ``trace.<pid>.<ns>.json`` into
-    ``log_dir``."""
-    import torch
+    raises without one; host activity alone for ``device="cpu"``.  Every
+    thread's host ops and spans are recorded, not only this one's, so that
+    engines served from client threads show.  Yields the profiler
+    (``key_averages()`` and the like); on exit, after the card has finished
+    the block's work, writes ``trace.<pid>.<ns>.json`` into ``log_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device("cuda", 0) if device is None else torch.device(device)
@@ -55,7 +69,8 @@ def device_trace(log_dir: str, device=None):
     elif device.type != "cpu":
         raise ValueError(f"device_trace traces a CUDA device or the CPU, not {device}")
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, experimental_config=every_thread) as prof:
         try:
             yield prof
         finally:

@@ -1541,7 +1541,7 @@ def report(name: str, run: dict, device: torch.device) -> dict:
     for kind, agg in per_kernel.items():
         n = run["launches"][kind]
         batches = len(run["batches"])
-        log(f"  {name} {kind}: {n} launches over {batches} batches ({stats['batches']} on the verify path; "
+        log(f"  {name} {kind}: {n} launches over {batches} batches ({stats['verify_batches']} on the verify path; "
             f"{n / batches:.2f} per batch), {build_launches[kind]} in the index build; "
             f"ms per site sum {agg['ms']:.4f}")
     return {

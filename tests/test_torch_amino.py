@@ -93,7 +93,7 @@ def test_amino_stream_matches_jax(amino, slots):
     assert set(counts[190:199].tolist()) == {10} and set(counts[199:202].tolist()) == {3}
     # The 300-residue batch takes the classic path; so does the short one in
     # the slot regime, whose window (k + 12 residues) its 32-wide pad exceeds.
-    assert eng.stats["batches"] == len(batches) - 1 - eng._verify_slots
+    assert eng.stats["verify_batches"] == len(batches) - 1 - eng._verify_slots
     if len(batches) == 3:
         assert set(got[2][0][200:219].tolist()) == {10}
     # Every hit spells its query ('*' and lowercase as canonicalized) in

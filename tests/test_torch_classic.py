@@ -124,7 +124,7 @@ def test_markless_stream_matches_jax(markless):
             np.testing.assert_array_equal(x, np.asarray(y), err_msg=f"batch {b} {name}")
     counts = got[0][0]
     assert set(counts[160:170].tolist()) == {12} and (counts[170:175] >= 3).all()
-    assert eng.stats["batches"] == 0  # no verify batch
+    assert eng.stats["verify_batches"] == 0 and eng.stats["batches"] == len(batches)
 
 
 def test_markless_count_and_locate_batch_match_jax(markless):
@@ -214,7 +214,7 @@ def test_use_verify_false_matches_jax():
     for g, w in zip(got, want):
         for x, y in zip(g, w):
             np.testing.assert_array_equal(x, np.asarray(y))
-    assert eng.stats["batches"] == 0
+    assert eng.stats["verify_batches"] == 0
     verify = FmQueryEngine(tidx, device="cpu")
     for g, v in zip(got, verify.count_locate_stream(batches, cap=CAP)):
         for x, y in zip(g, v):

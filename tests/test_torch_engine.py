@@ -111,7 +111,7 @@ def test_stream_matches_jax_engine(engines):
     assert (counts >= 1).all()
     assert set(counts[-22:-10].tolist()) == {3} and set(counts[-10:].tolist()) == {9}
     st = eng.stats
-    assert st["batches"] == 3  # the 600-symbol batch takes the classic path
+    assert st["batches"] == 4 and st["verify_batches"] == 3  # the 600-symbol batch takes the classic path
     assert st["fast_path_batches"] == 1
     assert st["wide_lanes"] > 0 and st["redis_lanes"] > 0 and st["multi_hit_queries"] > 0
 

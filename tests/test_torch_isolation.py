@@ -3,7 +3,7 @@
 In fresh interpreters: every module of awry_tpu_torch and chip_smoke import
 without loading jax or any module of awry_tpu; the NumPy host engine's
 count and locate, and --host on a .npz file, answer without loading torch.  In process:
-PhaseTimer's accounting and a CPU trace from device_trace."""
+a CPU trace from device_trace."""
 
 import json
 import os
@@ -13,8 +13,7 @@ import sys
 import pytest
 import torch
 
-from awry_tpu_torch.utils import profiling
-from awry_tpu_torch.utils.profiling import PhaseTimer, device_trace
+from awry_tpu_torch.utils.profiling import device_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,26 +84,6 @@ def test_host_cli_on_npz_loads_no_torch(tmp_path):
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout)
     assert out == {"rcs": [0, 0], "lines": ["ACGT\t61", "TTGA\t20", "GGACG\tb\t0"], "torch": False}
-
-
-def test_phase_timer_accounting(monkeypatch):
-    """Phases of one name add up, a failed phase is still timed, each phase
-    logs one line, and report() is a copy."""
-    ticks = iter([0.0, 1.5, 10.0, 10.25, 20.0, 22.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(ticks))
-    lines = []
-    timer = PhaseTimer(log=lines.append)
-    with timer.phase("build"):
-        pass
-    with timer.phase("query"):
-        pass
-    with pytest.raises(ValueError):
-        with timer.phase("build"):
-            raise ValueError("a failed phase is still timed")
-    assert timer.report() == {"build": 3.5, "query": 0.25}
-    assert lines == ["[phase] build: 1.500s", "[phase] query: 0.250s", "[phase] build: 2.000s"]
-    timer.report()["build"] = -1.0
-    assert timer.report()["build"] == 3.5
 
 
 def test_device_trace_cpu(tmp_path):

@@ -202,7 +202,7 @@ def test_stream_matches_jax_engine(engines):
     assert (counts[REDIS] >= 12).all() and (counts[NQ - 84 : NQ - 52] >= 3).all()
     assert got[2][0][-1] == 12 and got[2][0][-3] == 3
     st = eng.stats
-    assert st["batches"] == 2  # the 600-symbol batch takes the classic path
+    assert st["batches"] == 3 and st["verify_batches"] == 2  # the 600-symbol batch takes the classic path
     assert st["wide_lanes"] > 0 and st["redis_lanes"] >= 32 and st["multi_hit_queries"] > 0
 
 

@@ -208,9 +208,11 @@ def test_mesh_engine_matches_single(slots):
     refs = list(ref.count_locate_stream(batches, cap=2))
     for o, r in zip(outs, refs, strict=True):
         _same_results(o, r)
-    # Each verify slice counts as a batch; lane counters add up to the same.
+    # A batch counts once, each of its verify slices as a verify batch; lane
+    # counters add up to the same.
     assert eng.stats["queries"] == ref.stats["queries"] == len(pure) + len(with_n)
-    assert eng.stats["batches"] == slots * ref.stats["batches"]
+    assert eng.stats["batches"] == ref.stats["batches"] == len(batches)
+    assert eng.stats["verify_batches"] == slots * ref.stats["verify_batches"]
     for key in ("multi_hit_queries",):
         assert eng.stats[key] == ref.stats[key]
     assert eng.stats["wide_lanes"] + eng.stats["redis_lanes"] == ref.stats["wide_lanes"] + ref.stats["redis_lanes"]

@@ -366,9 +366,9 @@ def test_slot_long_queries_fall_back_and_switch_step_agrees(slot_index, slot_eng
     eng = slot_engines[0]
     long_q = [seq[i : i + 120] for i in range(0, 400, 40)]
     assert eng._wire_len(eng.encode_queries(long_q)[0]) > eng._verify_max_len
-    before = eng.stats["batches"]
+    before = eng.stats["verify_batches"]
     got = eng.count_locate_arrays(long_q, cap=2)
-    assert eng.stats["batches"] == before  # no verify batch
+    assert eng.stats["verify_batches"] == before  # no verify batch
     for i, q in enumerate(long_q):
         assert int(got[0][i]) == he.count(jidx, q) and _hits(got, i) == sorted(he.locate(jidx, q))
 
