@@ -29,8 +29,9 @@ Spans (``utils.profiling.span``, recorded only while a ``torch.profiler``
 runs) name the parts of serving, nested as they run: ``awry.encode``;
 ``awry.dispatch#n`` (the engine's n-th batch) holding ``awry.upload``,
 ``awry.launch`` and ``awry.to_host``; ``awry.assemble#n`` (the same n)
-holding ``awry.d2h_wait``, ``awry.verify_finish`` (with ``awry.redispatch``),
-``awry.flat_positions`` (with ``awry.overcap_expand``) and ``awry.localize``.
+holding ``awry.d2h_wait``, ``awry.verify_finish`` (with ``awry.redispatch``
+and ``awry.redis_layout``) on a verify batch or ``awry.flat_positions``
+(with ``awry.overcap_expand``) on a classic one, and ``awry.localize``.
 ``engine.stats`` counts what serving did (``STATS``).
 """
 
@@ -48,7 +49,7 @@ from ..utils.profiling import Counters, span
 from . import kernels
 from .device_index import TEXT_PAD_WORDS, resolve_device, to_device
 from .locate import count_locate_capped_t, lf_walk
-from .search import count_batch_kernel_t, search_ranges_t, unpack_crumbs_t, unpack_nibbles_t
+from .search import count_batch_kernel_t, counts_from_ranges, search_ranges_t, unpack_crumbs_t, unpack_nibbles_t
 from .verify import count_locate_slots_t, count_locate_verify_t, switch_step, unpack_verify_bundle, wide_groups
 from .wide import to_device_wide
 
@@ -58,10 +59,12 @@ _OVERCAP_WALK_SLAB = 8 * 1024 * 1024
 # engine.stats: batches and queries assembled; slices served by the verify
 # path, those of them on the fast path, their wide-settled and re-dispatched
 # lanes and queries with more than one hit; queries over cap and the rows
-# their expansion walks; bytes read from the device outside the pinned
-# copies; blocking device reads.
+# their expansion walks (on a verify slice: its re-dispatched lanes over cap
+# and their hits); bytes read from the device outside the pinned copies;
+# blocking device reads; hits the device laid out at their final offsets.
 STATS = ("batches", "queries", "verify_batches", "fast_path_batches", "wide_lanes", "redis_lanes",
-         "multi_hit_queries", "overcap_queries", "overcap_rows", "pageable_d2h_bytes", "host_syncs")
+         "multi_hit_queries", "overcap_queries", "overcap_rows", "pageable_d2h_bytes", "host_syncs",
+         "laid_positions")
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -515,10 +518,12 @@ class FmQueryEngine:
         return counts.astype(np.int64), flat_pos, offsets
 
     def _flat_verify_finish(self, n, wire, qlens, cap, bundle, batch):
-        """Host side of one verify batch: unpack the bundle and serve the
-        re-dispatched (redis) lanes through the classic full-depth path on
-        the device; then the fast path when every lane has one hit, else
-        scatter settled lanes, wide groups and redis lanes."""
+        """Host side of one verify batch: unpack the bundle and count the
+        re-dispatched (redis) lanes by a full-depth search on the device;
+        lay out the redis lanes' hits on the device, each at its final
+        offset (_lay_out_rows); then write the settled lanes' and the wide
+        groups' positions on the host, by the fast path when every lane has
+        one hit."""
         pos_u, counts_b, redis_b, lane_g, pos_slot, ok_slot = unpack_verify_bundle(
             bundle, batch, wide_groups(batch)
         )
@@ -527,41 +532,37 @@ class FmQueryEngine:
         vg = lane_g < n
         # Redis lanes first, so that a stray one (about one per 512k batch at
         # chr1 scale) does not knock the batch off the fast path.
-        sub_counts = sub_flat = sub_offsets = None
         idxs = np.nonzero(redis)[0]
         if len(idxs):
             with span("awry.redispatch"):
-                b = _bucket(len(idxs))
-                pad_idx = np.zeros(b, dtype=np.int64)  # padding rows repeat row 0, sliced off
-                pad_idx[: len(idxs)] = idxs
-                qt, ql, flags = self._upload(wire[pad_idx], qlens[pad_idx])
-                out = count_locate_capped_t(self.device_index, qt, ql, cap, **flags)
-                self.stats.add(host_syncs=3, pageable_d2h_bytes=sum(t.nbytes for t in out[:3]))
-                sub_counts, sub_flat, sub_offsets = self._flat_classic(
-                    [t.cpu().numpy() for t in out[:3]], len(idxs), cap
-                )
-        c_nr = counts[~redis]
-        if c_nr.min(initial=2) == 1 and c_nr.max(initial=0) == 1 and (
-            sub_counts is None or (sub_counts == 1).all()
-        ):
+                starts_d, counts_d, sub_counts = self._redis_counts(wire, qlens, idxs)
+            counts[redis] = sub_counts
+            over = sub_counts > cap
+            self.stats.add(overcap_queries=int(over.sum()), overcap_rows=int(sub_counts[over].sum()))
+        fast = counts.min(initial=2) == 1 and counts.max(initial=0) == 1
+        if fast:
+            offsets = np.arange(n + 1, dtype=np.int64)
+        else:
+            offsets = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+        laid = int(counts[idxs].sum())
+        if laid:
+            with span("awry.redis_layout"):
+                flat_pos = self._lay_out_rows(starts_d, counts_d, offsets[idxs], laid, int(offsets[-1]))
+        else:
+            flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
+
+        if fast:
             # Fast path: every lane has exactly one hit (the common serving
-            # shape); wide-settled and redis lanes scatter their one position.
-            flat = pos_u[:n].astype(np.int64)
+            # shape); wide-settled lanes scatter their one position.
+            np.copyto(flat_pos, pos_u[:n], where=~redis)
             nw = int(vg.sum())
             if nw:
                 slot = np.argmax(ok_slot[vg], axis=1)
-                flat[lane_g[vg]] = pos_slot[vg, slot].astype(np.int64)
-            if len(idxs):
-                counts[redis] = 1
-                flat[idxs] = sub_flat
+                flat_pos[lane_g[vg]] = pos_slot[vg, slot].astype(np.int64)
             self.stats.add(verify_batches=1, fast_path_batches=1, wide_lanes=nw, redis_lanes=len(idxs))
-            return counts, flat, np.arange(n + 1, dtype=np.int64)
+            return counts, flat_pos, offsets
 
-        if len(idxs):
-            counts[redis] = sub_counts
-        offsets = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(counts, out=offsets[1:])
-        flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
         wide_settled = np.zeros(n, dtype=bool)
         wide_settled[lane_g[vg]] = True
         self.stats.add(verify_batches=1, wide_lanes=int(wide_settled.sum()), redis_lanes=len(idxs),
@@ -574,21 +575,69 @@ class FmQueryEngine:
             ranks = np.cumsum(sel, axis=1) - 1
             lane_mat = np.broadcast_to(lane_g[:, None], sel.shape)
             flat_pos[offsets[:-1][lane_mat[sel]] + ranks[sel]] = pos_slot[sel].astype(np.int64)
-        if sub_flat is not None and sub_flat.shape[0]:
-            within = np.arange(sub_flat.shape[0], dtype=np.int64) - np.repeat(sub_offsets[:-1], sub_counts)
-            flat_pos[np.repeat(offsets[:-1][redis], sub_counts) + within] = sub_flat
         return counts, flat_pos, offsets
 
+    def _read_back(self, tensor: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host, through _to_host's pinned buffer (the
+        tensor itself on the CPU): one blocking read."""
+        (host,), event = self._to_host(tensor)
+        if event is not None:
+            event.synchronize()
+        self.stats.add(host_syncs=1)
+        return host.numpy()
+
+    def _redis_counts(self, wire, qlens, idxs):
+        """Full-depth search of the redis lanes ``idxs`` of a verify batch
+        (their wire rows, re-bucketed): their range starts and counts on the
+        device, and the counts on the host."""
+        m = len(idxs)
+        pad_idx = np.zeros(_bucket(m), dtype=np.int64)  # padding rows repeat row 0, sliced off
+        pad_idx[:m] = idxs
+        qt, ql, flags = self._upload(wire[pad_idx], qlens[pad_idx])
+        starts, ends = search_ranges_t(self.device_index, qt, ql, **flags)
+        counts = counts_from_ranges(starts[:m], ends[:m])
+        return starts[:m], counts, self._read_back(counts)
+
+    def _lay_out_rows(self, starts, counts, dst, laid: int, total: int) -> np.ndarray:
+        """int64[total] flat positions on the host: query i's ``counts[i]``
+        BWT rows from ``starts[i]`` (device tensors) are walked through
+        lf_walk and written, in row order, at ``dst[i]`` (host offsets)
+        onwards of one device buffer, which comes back in one pinned copy.
+        ``laid`` is the sum of the counts; every other entry is left for the
+        host to write."""
+        flat = torch.empty(total, dtype=torch.int64, device=self.device)
+        cum = torch.cumsum(counts, 0)
+        # Row h of the whole (query i's are cum[i] - counts[i] .. cum[i] - 1)
+        # is BWT row row0[i] + h, written at dst0[i] + h.
+        row0 = starts - (cum - counts)
+        dst0 = torch.from_numpy(dst).to(self.device) - (cum - counts)
+        for s0 in range(0, laid, _OVERCAP_WALK_SLAB):
+            h = torch.arange(s0, min(s0 + _OVERCAP_WALK_SLAB, laid), device=self.device)
+            q = torch.searchsorted(cum, h, right=True)
+            flat[dst0[q] + h] = lf_walk(self.device_index, row0[q] + h)
+        self.stats.add(laid_positions=laid)
+        return self._read_back(flat)
+
     def _assemble_flat_positions(self, counts, text_pos, starts, offsets, cap):
-        """Ragged assembly of the walked positions; queries over ``cap``
-        expand their BWT rows on the device (from range start + cumulative
-        count pairs) and walk them through lf_walk.  On an index without
-        marks a position read here that is -1 (a walk that could not end)
-        raises RuntimeError: the range-fed walk leaves that check to this
-        point, where the host waits on the batch anyway."""
+        """Ragged assembly of the walked positions; the rows of queries over
+        ``cap`` are walked and laid out on the device (_lay_out_rows), and
+        the host writes the capped walks' positions into that buffer.  On an
+        index without marks a position read here that is -1 (a walk that
+        could not end) raises RuntimeError: the range-fed walk leaves that
+        check to this point, where the host waits on the batch anyway."""
         counts = counts.astype(np.int64)
-        flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
         over = counts > cap
+        if over.any():
+            with span("awry.overcap_expand"):
+                o_counts = counts[over]
+                o_total = int(o_counts.sum())
+                flat_pos = self._lay_out_rows(
+                    torch.from_numpy(starts[over].astype(np.int64)).to(self.device),
+                    torch.from_numpy(o_counts).to(self.device), offsets[:-1][over], o_total, int(offsets[-1]),
+                )
+            self.stats.add(overcap_queries=len(o_counts), overcap_rows=o_total)
+        else:
+            flat_pos = np.empty(int(offsets[-1]), dtype=np.int64)
         nov = np.where(over, 0, counts)
         valid = np.arange(cap, dtype=np.int64)[None, :] < nov[:, None]
         vals = text_pos[valid].astype(np.int64)
@@ -601,24 +650,6 @@ class FmQueryEngine:
             np.concatenate(([0], np.cumsum(nov)[:-1])), nov
         )
         flat_pos[np.repeat(offsets[:-1], nov) + within] = vals
-        if over.any():
-            with span("awry.overcap_expand"):
-                o_counts = counts[over]
-                o_total = int(o_counts.sum())
-                o_cum = np.cumsum(o_counts)
-                o_within = np.arange(o_total, dtype=np.int64) - np.repeat(o_cum - o_counts, o_counts)
-                dst = np.repeat(offsets[:-1][over], o_counts) + o_within
-                d_starts = torch.from_numpy(starts[over].astype(np.int64)).to(self.device)
-                d_cum = torch.from_numpy(o_cum).to(self.device)
-                for s0 in range(0, o_total, _OVERCAP_WALK_SLAB):
-                    m = min(_OVERCAP_WALK_SLAB, o_total - s0)
-                    h = torch.arange(s0, s0 + m, device=self.device)
-                    qid = torch.searchsorted(d_cum, h, right=True)
-                    prev = torch.where(qid > 0, d_cum[(qid - 1).clamp_min(0)], 0)
-                    walked = lf_walk(self.device_index, d_starts[qid] + (h - prev))
-                    self.stats.add(host_syncs=1, pageable_d2h_bytes=walked.nbytes)
-                    flat_pos[dst[s0 : s0 + m]] = walked.cpu().numpy()
-            self.stats.add(overcap_queries=len(o_counts), overcap_rows=o_total)
         return flat_pos
 
     def _localize(self, text_pos: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

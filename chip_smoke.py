@@ -82,9 +82,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    reads drawn from record interiors plus a 512-read batch (random reads,
    reads of both repeats, reads right after a leading N run, drawn reads),
    served through count_locate_stream with the counts set to 0 just
-   before.  The verify walk is one marked_walk launch per batch, the
-   re-dispatched lanes' classic walk one marked_walk_ranges launch (both
-   required); the path launches no backstep.
+   before.  The verify walk is one marked_walk launch per batch, and the
+   re-dispatched lanes' hits are walked by marked_walk too, each laid out
+   at its final offset (required); the path launches no backstep.
 11. GRCh38 correctness, per record: every hit spells its query in its
    record, every drawn read (and every planted copy of a repeat read) is
    found at its own (record, local), 64 counts equal a naive scan, and the
@@ -95,6 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    sectors summed over every visit (what the walks ask of L2) and the rate
    they imply, and the chain floor (the longest walk at the per-step time
    of a one-row walk); backstep timed as one visit over each walk's rows.
+   Then the 512-read batch served by the classic path (use_verify=False,
+   the same host index, counts set to 0 just before): phase 10's answers,
+   its capped walk one marked_walk_ranges launch (required).
 13. Index files at chr20 scale: phase 7's host index (kept) saved as the
    .npz artifact (uncompressed) and loaded back, one 524,288-read batch
    served from it with phase 7's answers; then saved as .awry and loaded on
@@ -2769,8 +2772,7 @@ def main() -> int:
     log(f"phase 10 GRCh38-shaped path: {run['queries']} queries in {run['serve_s']:.3f} s; launches "
         f"{run['launches']}; peak device memory {torch.cuda.max_memory_allocated(device)} B "
         f"({time.perf_counter() - t0:.3f} s with text and build)")
-    # The re-dispatched lanes' classic walk runs the range-fed entry.
-    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "marked_walk", "marked_walk_ranges"))
+    require_launches("GRCh38-shaped", run["launches"], ("window_read", "occ_pair", "marked_walk"))
     if run["launches"]["backstep"]:
         raise AssertionError("the GRCh38-shaped path launched backstep: its walk must be one marked_walk launch")
     stats = run["engine"].stats
@@ -2782,6 +2784,18 @@ def main() -> int:
     log("phase 12 GRCh38 report:")
     paths["grch38"] = report("grch38", run, device) | {"checks": checks}
     paths["grch38"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    # The range-fed walk serves the classic path's capped ranges.
+    t0 = time.perf_counter()
+    classic, _ = ship(run["index"], device, use_verify=False)
+    crun = serve(classic, run["batches"][-1:], device)
+    classic.release()
+    del classic
+    if not same_answers(crun["results"][0], run["results"][-1]):
+        raise AssertionError("the classic path's answers to the GRCh38 512-read batch differ from the verify path's")
+    log(f"  GRCh38 512-read batch, classic path: phase 10's answers; launches {crun['launches']} "
+        f"({time.perf_counter() - t0:.3f} s with the ship)")
+    require_launches("GRCh38-shaped classic", crun["launches"], ("occ_pair", "marked_walk_ranges"))
+    paths["grch38"]["classic_tail_launches"] = crun["launches"]
 
     # Phase 17 runs while phase 10's engine lives: its tables give the
     # narrow twins their rows; then the facade on the wide index.

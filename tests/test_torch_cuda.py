@@ -428,6 +428,35 @@ def test_slot_engine_matches_cpu(card):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mark_ratio", [1, 4])
+def test_redis_layout_on_card(card, mark_ratio, monkeypatch):
+    """The verify path's re-dispatched lanes (10 hits, over cap 2; 1 hit; 0
+    hits) laid out on the card, in slabs of 5 rows so that lanes cross
+    slabs (window_read at mark 1, marked_walk at mark 4): the CPU engine's
+    answers, with two pinned reads beside the bundle's and no pageable
+    one."""
+    import awry_tpu_torch.ops.engine as engine_mod
+
+    monkeypatch.setattr(engine_mod, "_OVERCAP_WALK_SLAB", 5)
+    rng = np.random.default_rng(71)
+    seq = bytearray(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=30_000))
+    for r in range(9):
+        seq[2_000 + 3_000 * r : 2_040 + 3_000 * r] = seq[100:140]
+    seq = bytes(seq)
+    index = build_from_records([("s", seq)], FmBuildArgs(lookup_table_kmer_len=4, locate_mark_ratio=mark_ratio))
+    on_card, on_cpu = FmQueryEngine(index, device=card), FmQueryEngine(index, device="cpu")
+    queries = [seq[s : s + 30] for s in rng.integers(0, len(seq) - 30, size=2000)]
+    queries += [seq[105:135], seq[90:120], b"A" * 10 + seq[100:120]]
+    walks = (kernels.window_read if mark_ratio == 1 else kernels.marked_walk).launches
+    got = on_card.count_locate_arrays(queries, cap=2)
+    assert (kernels.window_read if mark_ratio == 1 else kernels.marked_walk).launches > walks
+    for x, y in zip(got, on_cpu.count_locate_arrays(queries, cap=2)):
+        np.testing.assert_array_equal(x, y)
+    assert got[0][-3:].tolist() == [10, 1, 0] and on_card.stats["laid_positions"] >= 10
+    assert on_card.stats["pageable_d2h_bytes"] == 0 and on_card.stats["host_syncs"] == 3
+
+
 def _markless(alphabet, sa_ratio, tmp_path, n=60_000, seed=11):
     """A built index saved to .awry and loaded back on the CPU: no marks, no
     packed text."""

@@ -72,14 +72,23 @@ def _spans_of(prof):
     return out
 
 
+def _by_kind(prof):
+    """The spans of ``_spans_of`` grouped by name without the ``#n``."""
+    by = {}
+    for name, s, t in _spans_of(prof):
+        by.setdefault(name.split("#")[0], []).append((name, s, t))
+    return by
+
+
 def _inside(child, parents):
     return any(s <= child[1] and child[2] <= t for _, s, t in parents)
 
 
 def test_stream_spans_nest_and_number_batches(text, index):
     """Two batches through the stream record dispatch#n and assemble#n with
-    the same two n, each child inside its parent, and the over-cap read's
-    expansion inside the flat positions of its re-dispatched lanes."""
+    the same two n, each child inside its parent, and the re-dispatched
+    lanes' serve and layout inside the verify finish; on a classic batch,
+    the over-cap read's expansion inside its flat positions."""
     eng = FmQueryEngine(index, device="cpu")
     batches = [_reads(text, 40, 1), _reads(text, 40, 2)]
     want = [eng.count_locate_arrays(b, cap=CAP) for b in batches]
@@ -88,10 +97,7 @@ def test_stream_spans_nest_and_number_batches(text, index):
     for g, w in zip(got, want):
         for x, y in zip(g, w):
             np.testing.assert_array_equal(x, y)
-    rows = _spans_of(prof)
-    by = {}
-    for name, s, t in rows:
-        by.setdefault(name.split("#")[0], []).append((name, s, t))
+    by = _by_kind(prof)
     ns = {kind: sorted(int(n.split("#")[1]) for n, _, _ in by[f"awry.{kind}"]) for kind in ("dispatch", "assemble")}
     assert len(ns["dispatch"]) == 2 and ns["dispatch"] == ns["assemble"]
     assert len(by["awry.encode"]) == 2
@@ -100,8 +106,7 @@ def test_stream_spans_nest_and_number_batches(text, index):
         "awry.launch": by["awry.dispatch"],
         "awry.verify_finish": by["awry.assemble"],
         "awry.redispatch": by["awry.verify_finish"],
-        "awry.flat_positions": by["awry.redispatch"],
-        "awry.overcap_expand": by["awry.flat_positions"],
+        "awry.redis_layout": by["awry.verify_finish"],
         "awry.localize": by["awry.assemble"],
     }
     for child, outer in parents.items():
@@ -110,6 +115,25 @@ def test_stream_spans_nest_and_number_batches(text, index):
     # Every upload but the re-dispatches' sits in a dispatch; the encode in none.
     assert sum(_inside(c, by["awry.dispatch"]) for c in by["awry.upload"]) == 2
     assert not any(_inside(c, by["awry.dispatch"]) for c in by["awry.encode"])
+    # A verify batch lays its re-dispatched lanes' hits out once: no flat
+    # positions, no over-cap expansion.
+    assert "awry.flat_positions" not in by and "awry.overcap_expand" not in by
+
+    classic = FmQueryEngine(index, device="cpu", use_verify=False)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = classic.count_locate_arrays(batches[0], cap=CAP)
+    for x, y in zip(got, want[0]):
+        np.testing.assert_array_equal(x, y)
+    by = _by_kind(prof)
+    parents = {
+        "awry.flat_positions": by["awry.assemble"],
+        "awry.overcap_expand": by["awry.flat_positions"],
+        "awry.localize": by["awry.assemble"],
+    }
+    for child, outer in parents.items():
+        assert by[child], child
+        assert all(_inside(c, outer) for c in by[child]), child
+    assert "awry.verify_finish" not in by and "awry.redis_layout" not in by
 
 
 def test_spans_off_make_no_record_function(text, index, monkeypatch):
@@ -132,8 +156,9 @@ def test_spans_off_make_no_record_function(text, index, monkeypatch):
 
 
 def test_counters_on_hand_counted_batches(text, index):
-    """Classic path, cap 2: a crumb batch with reads of 9 and 3 hits expands
-    12 rows of 2 queries in one slab (one pageable read of 12 int64); a
+    """Classic path, cap 2: a crumb batch with reads of 9 and 3 hits lays
+    out the 12 rows of its 2 queries over cap on the device (one read of
+    the batch's flat positions, through _to_host, so nothing pageable); a
     nibble batch (an N) checks the live mask once per step after the first
     (its 30 bp pad to 32: 31 checks) and has nothing over cap."""
     eng = FmQueryEngine(index, device="cpu", use_verify=False)
@@ -145,17 +170,18 @@ def test_counters_on_hand_counted_batches(text, index):
     st = eng.stats
     assert st["batches"] == 2 and st["queries"] == len(crumb) + len(nibble)
     assert (st["overcap_queries"], st["overcap_rows"]) == (2, 12)
-    assert st["pageable_d2h_bytes"] == 12 * 8
-    # The CPU has no copy event: the crumb batch's one sync is its walked rows'.
+    assert st["laid_positions"] == 12 and st["pageable_d2h_bytes"] == 0
+    # The CPU has no copy event: the crumb batch's one sync is its laid-out rows'.
     assert st["host_syncs"] == 1 + 31
     assert st["fast_path_batches"] == st["redis_lanes"] == 0
 
 
 def test_counters_of_a_verify_batch(text, index):
     """Verify path: the 9-hit read is wider than a wide lane takes, so it is
-    re-dispatched to the classic path, padded to 16 lanes (three reads of its
-    int64 outputs: counts, cap positions and starts), whose expansion walks
-    its 9 rows (one read)."""
+    re-dispatched to a full-depth search (one read: its count), and its 9
+    rows are walked and laid out at their final offsets on the device (one
+    read: the batch's flat positions), through _to_host, so nothing is read
+    from pageable memory."""
     eng = FmQueryEngine(index, device="cpu")
     batch = _reads(text, 40, 6)[:-1]
     counts = eng.count_locate_arrays(batch, cap=CAP)[0]
@@ -163,8 +189,10 @@ def test_counters_of_a_verify_batch(text, index):
     st = eng.stats
     assert (st["batches"], st["queries"], st["redis_lanes"]) == (1, len(batch), 1)
     assert (st["overcap_queries"], st["overcap_rows"]) == (1, 9)
-    assert st["host_syncs"] == 3 + 1
-    assert st["pageable_d2h_bytes"] == 16 * 8 * (1 + CAP + 1) + 9 * 8
+    assert st["laid_positions"] == 9
+    # The CPU has no copy event for the bundle: the syncs are the two reads.
+    assert st["host_syncs"] == 1 + 1
+    assert st["pageable_d2h_bytes"] == 0
 
 
 def _in_threads(work, n: int) -> None:
@@ -237,7 +265,7 @@ def test_device_trace_records_client_threads(tmp_path, text, index):
         assert done.wait(timeout=120)
     t.join(timeout=120)
     names = {n.split("#")[0] for n, _, _ in _spans_of(prof)}
-    assert {"awry.dispatch", "awry.assemble", "awry.overcap_expand"} <= names
+    assert {"awry.dispatch", "awry.assemble", "awry.redis_layout"} <= names
 
 
 # -- fmbench's reading, on made-up events ------------------------------------------------
