@@ -442,7 +442,10 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool, d
     out["device"] = {"platform": "gpu" if on_card else "cpu", "count": 1, "memory_peak_bytes": int(memory_peak)}
     if trace and on_card and "trace" in rec:
         out["device"].update(busy_s=rec["trace"]["busy_s"], window_s=rec["trace"]["window_s"])
-        out["breakdown"] = rec["trace"]["breakdown"]
+        # The device ops are the first slice's; the idle gaps the span
+        # slice's, named by the host op or the innermost span across each.
+        out["breakdown"] = {"device_ops": rec["trace"]["breakdown"]["device_ops"],
+                            "idle_gaps": rec["span_slice"]["idle_gaps"]}
     out["clients"] = n_clients
     out["hits_per_read_pct"] = shares
     out["index_build_s"] = build_s

@@ -15,7 +15,9 @@ covers its midpoint, else by the innermost span open there, else as
 ``gpu_user_annotation``.  ``READERS`` computes the per-batch figures from a
 record that holds ``trace.spans``, ``trace.idle_outside_spans_s`` and
 ``trace.stats`` (the counters' change over a recording pass); each returns
-None when its input is missing.
+None when its input is missing.  ``read`` gives a reader that record from a
+traced run's: the span slice (``span_slice``) and the recording pass's
+``counters``, both made by ``tracing.traced_slice``.
 
 A profiler started in one thread records the host ops and spans of that
 thread alone unless it is made with ``profile_all_threads``
@@ -152,10 +154,27 @@ def assemble_ms_per_batch(rec: dict) -> float | None:
     return _per_assemble(rec, a["total_s"] - (wait["total_s"] if wait else 0.0))
 
 
+def _totals_per_assemble(rec: dict, *names: str) -> float | None:
+    """The named spans' summed seconds over the assemble spans, in ms; None
+    when none of them was opened."""
+    parts = [x for x in (_span(rec, name) for name in names) if x]
+    return None if not parts else _per_assemble(rec, sum(x["total_s"] for x in parts))
+
+
+def localize_ms_per_batch(rec: dict) -> float | None:
+    """``awry.localize`` seconds over the assemble spans, in ms."""
+    return _totals_per_assemble(rec, "awry.localize")
+
+
+def redis_serve_ms_per_batch(rec: dict) -> float | None:
+    """The re-dispatched lanes' serve, ``awry.redispatch`` and
+    ``awry.redis_layout``, seconds over the assemble spans, in ms."""
+    return _totals_per_assemble(rec, "awry.redispatch", "awry.redis_layout")
+
+
 def overcap_expand_ms_per_batch(rec: dict) -> float | None:
     """``awry.overcap_expand`` seconds over the assemble spans, in ms."""
-    x = _span(rec, "awry.overcap_expand")
-    return None if not x else _per_assemble(rec, x["total_s"])
+    return _totals_per_assemble(rec, "awry.overcap_expand")
 
 
 def _mean_ms(rec: dict, name: str) -> float | None:
@@ -201,6 +220,19 @@ def host_syncs_per_batch(rec: dict) -> float | None:
     return _per_batch(rec, "host_syncs")
 
 
+def laid_positions_per_batch(rec: dict) -> float | None:
+    return _per_batch(rec, "laid_positions")
+
+
 READERS = {f.__name__: f for f in (
-    assemble_ms_per_batch, overcap_expand_ms_per_batch, dispatch_ms_per_batch, d2h_wait_ms_per_batch,
-    idle_outside_spans_share, overcap_rows_per_batch, pageable_d2h_mb_per_batch, host_syncs_per_batch)}
+    assemble_ms_per_batch, localize_ms_per_batch, redis_serve_ms_per_batch, overcap_expand_ms_per_batch,
+    dispatch_ms_per_batch, d2h_wait_ms_per_batch, idle_outside_spans_share, overcap_rows_per_batch,
+    pageable_d2h_mb_per_batch, host_syncs_per_batch, laid_positions_per_batch)}
+
+
+def read(name: str, rec: dict) -> float | None:
+    """``READERS[name]`` over a traced run's record (see the module doc)."""
+    view = dict(rec.get("span_slice") or {})
+    if rec.get("counters"):
+        view["stats"] = rec["counters"]
+    return READERS[name]({"trace": view})

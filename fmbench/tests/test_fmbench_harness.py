@@ -50,6 +50,8 @@ def test_a_new_mix_and_metric_are_found_by_name(root, tmp_path):
                                "why": "toy"})
     bench["per_layer"].append({"name": "toy_metric", "unit": "n", "better": "higher", "source": "program_counter",
                                "layer": "toy", "moves": "reads_per_s", "workloads": ["chr1.toy24"]})
+    # A new cell joins an existing metric by its name in the metric's list.
+    next(m for m in bench["per_layer"] if m["name"] == "index_load_s")["workloads"].append("chr1.toy24")
     with open(os.path.join(new, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
     out = run(new, "chr1.toy24", trace=True)

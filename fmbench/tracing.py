@@ -1,22 +1,30 @@
 """The traced run's records: a profiled steady slice of every client at
-once, and a recording pass over the pool for the roofline bounds.
+once, a second slice that records every thread's spans, and a recording
+pass over the pool for the roofline bounds and the engine's counters.
 
 After the measured window every client starts a new closed-loop pass.
 Once each has got ``depth`` batches back since the pass began, so that its
 pipeline is full, ``torch.profiler`` (CPU and CUDA activity) starts; it
-stops once each has got ``trace_batches`` more back, while all still serve,
-and the pass then ends.  The slice's batches are those the clients got back
-while it ran.  Only summaries are kept: per kernel name its launches and
-seconds, the union of the device's busy intervals, and the longest idle
-gaps with the host op that ran across each.  Then, with no profiler, one
-client serves every pool batch once with each roofline metric's wrapper of
+stops once each has got ``trace_batches`` more back, while all still serve.
+The slice's batches are those the clients got back while it ran.  Only
+summaries are kept: per kernel name its launches and seconds, the union of
+the device's busy intervals, and the longest idle gaps with the host op
+that ran across each.  Once each client has got ``depth`` more back, a
+second profiler, made with ``profile_all_threads`` so that the clients'
+threads and their ``awry.*`` spans are recorded, runs over another
+``trace_batches`` batches of each, and the pass then ends: its record holds
+that slice's own batches, seconds and busy seconds, and
+``spans.summarize_spans`` of its events.  Then, with no profiler, one
+client serves every pool batch once, with each roofline metric's wrapper of
 ``awry_tpu_torch.ops.kernels`` recording the bytes and operations its calls
 must move (the metric module's ``KERNEL`` and ``bound``): the mean bound
-of a call, against the mean traced time of a launch.
+of a call, against the mean traced time of a launch.  The recording pass
+also keeps ``engine.stats``' change over it.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import numpy as np
@@ -97,38 +105,51 @@ def _wait(threads, test) -> bool:
 
 
 def traced_slice(cs: dict, engine, clients, kernels, on_card: bool, load_metric) -> dict:
-    """``{"trace": summaries, "recorded": {metric: {bytes, ops, calls}}}``
-    of one profiled steady slice and the recording pass (see the module
-    doc)."""
+    """``{"trace": summaries, "span_slice": the span slice's record,
+    "counters": engine.stats' change over the recording pass, "recorded":
+    {metric: {bytes, ops, calls}}}`` of the two profiled steady slices and
+    the recording pass (see the module doc)."""
     import torch
 
+    from . import spans
     from .harness import log, run_pass
 
     mix = cs["mix"]
     k, depth = int(mix["trace_batches"]), int(mix.get("depth", 2))
     out: dict = {}
-    # On the CPU (tests) the same slice runs with host activity alone, and
-    # no device number comes of it.
+    # On the CPU (tests) the same slices run with host activity alone, and
+    # no device number comes of them.
     acts = [torch.profiler.ProfilerActivity.CPU] + ([torch.profiler.ProfilerActivity.CUDA] if on_card else [])
     prof = torch.profiler.profile(activities=acts)
-    span: dict = {}
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    span_prof = torch.profiler.profile(activities=acts, experimental_config=every_thread)
+    first: dict = {}
+    second: dict = {}
 
-    def monitor(threads, stop):
+    def profiled(threads, p, mark: dict) -> None:
+        """``p`` on from when every client has ``depth`` more batches back
+        until each has ``k`` more; ``mark`` gets the times, the clients'
+        returned counts and whether the slice was full."""
         r0 = [c.returned for c in clients]
         if not _wait(threads, lambda: all(c.returned - r >= depth for c, r in zip(clients, r0))):
             return
-        prof.start()
-        span["t0"], span["r0"] = time.perf_counter(), [c.returned for c in clients]
-        full = _wait(threads, lambda: all(c.returned - r >= k for c, r in zip(clients, span["r0"])))
-        span["t1"], span["r1"] = time.perf_counter(), [c.returned for c in clients]
-        prof.stop()
-        span["full"] = full
+        p.start()
+        mark["t0"], mark["r0"] = time.perf_counter(), [c.returned for c in clients]
+        full = _wait(threads, lambda: all(c.returned - r >= k for c, r in zip(clients, mark["r0"])))
+        mark["t1"], mark["r1"] = time.perf_counter(), [c.returned for c in clients]
+        p.stop()
+        mark["full"] = full
+
+    def monitor(threads, stop):
+        profiled(threads, prof, first)
+        if first.get("full"):
+            profiled(threads, span_prof, second)
 
     run_pass(clients, float("inf"), None, monitor)
-    if not span.get("full"):
+    if not first.get("full"):
         raise RuntimeError("a client ended before the traced slice was full")
-    batches = sum(b - a for a, b in zip(span["r0"], span["r1"]))
-    window_s = span["t1"] - span["t0"]
+    batches = sum(b - a for a, b in zip(first["r0"], first["r1"]))
+    window_s = first["t1"] - first["t0"]
     out["trace"] = summarize(prof.profiler.kineto_results.events(), batches, window_s)
     log(f"traced slice: {batches} batches of {len(clients)} clients ({k}+ each, pipelines full) in "
         f"{window_s:.3f} s, busy {out['trace']['busy_s']:.4f} s, device event kinds {out['trace']['device_kinds']}")
@@ -136,14 +157,32 @@ def traced_slice(cs: dict, engine, clients, kernels, on_card: bool, load_metric)
         if i < 25 or "walk" in name:
             log(f"  kernel {n:6d} x {sec:.6f} s  {name[:200]}")
 
-    # The recording pass: every pool batch once, one client.
+    # The span slice: its own batches, seconds and busy seconds, the spans'
+    # table, the idle time no span covers and the idle gaps named.
+    if not second.get("full"):
+        raise RuntimeError("a client ended before the span slice was full")
+    events = span_prof.profiler.kineto_results.events()
+    batches = sum(b - a for a, b in zip(second["r0"], second["r1"]))
+    window_s = second["t1"] - second["t0"]
+    times = [1000.0 * (ret - hand) for c in clients for _, hand, ret, _ in c.done if second["t0"] <= ret <= second["t1"]]
+    sl = {"batches": batches, "window_s": window_s, "busy_s": summarize(events, batches, window_s)["busy_s"],
+          "median_batch_ms": statistics.median(times) if times else None, **spans.summarize_spans(events)}
+    del events
+    out["span_slice"] = sl
+    log(f"span slice: {batches} batches in {window_s:.3f} s, busy {sl['busy_s']:.4f} s, median batch "
+        f"{sl['median_batch_ms']} ms, device idle with no span open {sl['idle_outside_spans_s']:.4f} s")
+    for name, r in sorted(sl["spans"].items(), key=lambda kv: -kv[1]["total_s"]):
+        log(f"  span {name:22s} {r['count']:5d} x  total {r['total_s']:.6f} s  self {r['self_s']:.6f} s")
+    for label, sec in sl["idle_gaps"]:
+        log(f"  idle gap {sec:.6f} s  {label}")
+
+    # The recording pass: every pool batch once, one client, with the
+    # roofline metrics' wrappers in place and engine.stats' change kept.
     wanted: dict = {}
     for name in cs["per_layer"]:
         mod = load_metric(name)
         if hasattr(mod, "KERNEL"):
             wanted.setdefault(mod.KERNEL, []).append((name, mod.bound))
-    if not wanted:
-        return out
     totals = {name: {"bytes": 0.0, "ops": 0.0, "calls": 0} for entries in wanted.values() for name, _ in entries}
     real = {kname: getattr(kernels, kname) for kname in wanted}
 
@@ -164,11 +203,15 @@ def traced_slice(cs: dict, engine, clients, kernels, on_card: bool, load_metric)
 
     for kname in wanted:
         setattr(kernels, kname, recorder(kname))
+    before = dict(engine.stats)
     try:
         run_pass(clients[:1], float("inf"), len(clients[0].order))
     finally:
         for kname, fn in real.items():
             setattr(kernels, kname, fn)
-    out["recorded"] = totals
-    log(f"recorded bounds over the pool {totals}")
+    out["counters"] = {name: v - before[name] for name, v in engine.stats.items()}
+    log(f"engine.stats over the recording pass {out['counters']}")
+    if wanted:
+        out["recorded"] = totals
+        log(f"recorded bounds over the pool {totals}")
     return out
